@@ -12,15 +12,37 @@ Phases; any failure exits non-zero without the final "ok" line:
       Wiener, at 9x9x64x96 RGB and at one flagship reference: num and the
       deferred den within 1e-4 relative (L2 norm; f32 atomics order, and an
       HT coefficient within rounding of its threshold may flip);
-  (d) the flagship two-step denoise through run_bm5d(engine="auto"): one warm
-      run, then a timed run whose kernel launch counts must all be > 0, with
-      final PSNR >= 28.37 dB and basic >= 27.64 dB; a small LF is held
-      against the float64 plain pipeline on the CPU (within 0.05 dB).
-Then the card's name and power limit, a {"kernels": [...]} line, and the
-last line {"ok": true, "device": {...}}.
+  (d) the flagship two-step denoise through run_bm5d(engine="auto") (route
+      "fused"): one warm run, then a timed run whose kernel launch counts
+      must all be > 0, with final PSNR >= 28.37 dB and basic >= 27.64 dB; a
+      small LF is held against the float64 plain pipeline on the CPU (within
+      0.05 dB);
+  (e) the kernels of the 17x17 and N=16 paths vs their plain versions:
+      Python group_smem_bytes == the library's; BM at A=289 (mismatch
+      <= 1e-3); the banked group kernel, HT and Wiener, within 1e-4 relative
+      at 17x17x32x32 RGB matched and 9x9x64x96 RGB `default` (N=16), with a
+      grid sweep at 17x17x128x128; extract_groups exact and the two
+      accumulate forms within 1e-5 relative at one 17x17x128x128 reference;
+  (f) 17x17x128x128 RGB matched (synth seed 0, disp 1/2, noise seed 100,
+      sigma 25: the config-5 probe content) through engine="auto" (route
+      "banked") and fused=False (route "two_kernel"): final PSNR >= 27.907
+      dB on both (the recorded 27.957 less 0.05), within 0.05 dB of each
+      other, and every kernel of each route launched;
+  (g) 17x17x512x512 RGB matched (the HCI benchmark's view size), one timed
+      run after (f) warmed the kernels: s/LF, Mpix/s, PSNR, peak memory;
+  (h) the `default` and `robust` presets at 9x9x24x32 RGB through
+      engine="auto" on the card (route "banked"), each within 0.05 dB of the
+      float64 plain pipeline (engine="torch"; run on the card, where it
+      takes seconds instead of minutes on the host's CPU).
+Then the card's name and power limit, a {"kernels": [...]} line (launches
+from the path each kernel serves; ms and plain_ms at that path's shapes;
+bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
+67 TFLOP/s that this run's inputs need), and the last line
+{"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -28,8 +50,13 @@ import traceback
 
 PSNR_FINAL_MIN = 28.37  # recorded 28.42 dB less 0.05 dB
 PSNR_BASIC_MIN = 27.64  # recorded 27.69 dB less 0.05 dB
+PSNR_17_MIN = 27.907  # recorded 27.957 dB (17x17x128x128 matched) less 0.05
 BM_MISMATCH_MAX = 1e-3
 GROUP_REL_MAX = 1e-4
+ACC_REL_MAX = 1e-5
+PSNR_DELTA_MAX = 0.05
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 
 
 def card_line() -> str:
@@ -39,6 +66,21 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_lines(log: str):
+    """'kernel: registers; spills' per kernel from ptxas' -v report."""
+    name, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '\w*\d([a-z_]+_kernel(ILb[01])?)",
+                      line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "registers" in line and name:
+            yield f"{name}: {line.split(':', 1)[-1].strip()}; {spill}"
+            name = None
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -56,10 +98,19 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_bm(ctx):
-    """(b) self-BM and cross-argmin kernels vs plain at one flagship ref."""
-    import torch
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time for these bytes and fp32
+    operations on an H100 SXM."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def phase_bm(label, ctx):
+    """Self-BM and cross-argmin kernels vs plain at one reference SAI."""
     from lfbm5d_torch.kernels.bm import (
         cross_argmin_all_kernel, self_distances_kernel,
     )
@@ -68,6 +119,7 @@ def phase_bm(ctx):
     sp, match0, r = ctx["sp"], ctx["match0"], ctx["ref"]
     ys, xs, k, n, nd = ctx["ys"], ctx["xs"], sp.k, sp.n_search, sp.n_disp
     plane = match0[r]
+    a, hp, wp = match0.shape
     out = {}
 
     dk = self_distances_kernel(plane, ys, xs, k, n)
@@ -76,11 +128,13 @@ def phase_bm(ctx):
     dmax = int((dk - dp).abs().max())
     ms = cuda_ms(lambda: self_distances_kernel(plane, ys, xs, k, n))
     pms = cuda_ms(lambda: self_distances(plane, ys, xs, k, n))
-    print(f"(b) self_distances {tuple(dk.shape)}: mismatch {mis:.3e}, "
+    print(f"{label} self_distances {tuple(dk.shape)}: mismatch {mis:.3e}, "
           f"max |d| {dmax} quanta; kernel {ms:.3f} ms, plain {pms:.3f} ms")
     if mis > BM_MISMATCH_MAX or dmax > 1:
         raise AssertionError("self_distances kernel disagrees with plain")
-    out["self_distances_kernel"] = dict(max_abs_err=dmax, ms=ms, plain_ms=pms)
+    bms, by = bound(nbytes(plane, dk), dk.numel() * k * k * 3)
+    out["self_distances_kernel"] = dict(max_abs_err=dmax, ms=ms, plain_ms=pms,
+                                        bound_ms=bms, bound_by=by)
 
     bk = cross_argmin_all_kernel(plane, match0, k, nd)
     bp = cross_argmin_all(plane, match0, k, nd)
@@ -88,25 +142,47 @@ def phase_bm(ctx):
     imax = int((bk - bp).abs().max())
     ms = cuda_ms(lambda: cross_argmin_all_kernel(plane, match0, k, nd))
     pms = cuda_ms(lambda: cross_argmin_all(plane, match0, k, nd), reps=2)
-    print(f"(b) cross_argmin_all {tuple(bk.shape)}: mismatch {mis:.3e}, "
+    print(f"{label} cross_argmin_all {tuple(bk.shape)}: mismatch {mis:.3e}, "
           f"max |index delta| {imax}; kernel {ms:.3f} ms, plain {pms:.3f} ms")
     if mis > BM_MISMATCH_MAX:
         raise AssertionError("cross_argmin_all kernel disagrees with plain")
+    # per displacement: squared differences, vertical and horizontal k-taps
+    v0, v1 = bk.shape[1:]
+    ops = a * (2 * nd + 1) ** 2 * (3 * hp * wp + (k - 1) * (v0 * wp + v0 * v1))
+    bms, by = bound(nbytes(plane, match0, bk), ops)
     out["cross_argmin_all_kernel"] = dict(max_abs_err=imax, ms=ms,
-                                          plain_ms=pms)
+                                          plain_ms=pms, bound_ms=bms,
+                                          bound_by=by)
     return out
 
 
-def group_check(label, params, x, basic, sigma_c, wiener):
-    """Group kernel vs plain at the first reference SAI of one step."""
+def group_flops(lvl, mask, c, a_h, a_w, wiener) -> float:
+    """fp32 operations of the group stage for this run's live groups:
+    per plane and live group of ns = 2**lvl slots, a transform is
+    np*2048 (spatial) + 128*np*(aH+aW) (angular) + 128*A*ns^2 (stack) with
+    np = ns*A patches; HT runs two transforms, Wiener three; aggregation is
+    128*np more."""
     import torch
 
-    from lfbm5d_torch.kernels.fused import (
-        fused_group_step, fused_group_step_plain,
-    )
+    a = a_h * a_w
+    live = mask.any(dim=1)
+    ns = (1 << lvl.long())[live].double()
+    npch = ns * a
+    tr = npch * 2048 + 128 * npch * (a_h + a_w) + 128 * a * ns * ns
+    per = (3 if wiener else 2) * tr + 128 * npch
+    return float(torch.sum(per)) * c
+
+
+def group_check(label, params, x, basic, sigma_c, wiener, fn_name):
+    """A group kernel vs plain at the first reference SAI of one step:
+    (max |delta|, kernel ms, plain ms, bound ms, bound_by, step)."""
+    import torch
+
+    from lfbm5d_torch.kernels import fused as kf
     from lfbm5d_torch.pipeline.denoise import _flat_pad
     from lfbm5d_torch.pipeline.engine import build_kernel_step
 
+    fn = getattr(kf, fn_name)
     sp = params.wiener if wiener else params.ht
     lam = 0.0 if wiener else params.lambda_3d
     a_h, a_w, h, w, c = x.shape
@@ -125,29 +201,145 @@ def group_check(label, params, x, basic, sigma_c, wiener):
     num = torch.zeros_like(noisy_pl)
     wden = torch.zeros_like(noisy_pl)
 
-    def run(fn):
+    def run(f, **kw):
         num.zero_()
         wden.zero_()
-        fn(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask, r, sigma_c,
-           step.tables, num, wden, k=sp.k, nd=sp.n_disp, lambda_3d=lam,
-           wiener=wiener)
+        f(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask, r, sigma_c,
+          step.tables, num, wden, k=sp.k, nd=sp.n_disp, lambda_3d=lam,
+          wiener=wiener, **kw)
 
-    run(fused_group_step)
+    run(fn)
     nk, dk = num.clone(), wden.clone()
-    run(fused_group_step_plain)
+    run(kf.fused_group_step_plain)
     rel_n = float((nk - num).norm() / num.norm())
     rel_d = float((dk - wden).norm() / wden.norm())
     err = max(float((nk - num).abs().max()), float((dk - wden).abs().max()))
     live = int(mask[:, 0].sum())
-    msg = (f"(c) group {label} {'Wiener' if wiener else 'HT'}: {live}/"
-           f"{mask.shape[0]} live groups, rel num {rel_n:.2e}, rel den "
-           f"{rel_d:.2e}, max |d| {err:.3e}")
-    ms = cuda_ms(lambda: run(fused_group_step))
-    pms = cuda_ms(lambda: run(fused_group_step_plain), reps=2)
+    msg = (f"{label} {fn_name} {'Wiener' if wiener else 'HT'} (route "
+           f"{step.route}): {live}/{mask.shape[0]} live groups, rel num "
+           f"{rel_n:.2e}, rel den {rel_d:.2e}, max |d| {err:.3e}")
+    ms = cuda_ms(lambda: run(fn))
+    pms = cuda_ms(lambda: run(kf.fused_group_step_plain), reps=2)
     print(msg + f"; kernel {ms:.3f} ms, plain {pms:.3f} ms")
     if not rel_n <= GROUP_REL_MAX or not rel_d <= GROUP_REL_MAX:
-        raise AssertionError(f"group kernel ({label}) disagrees with plain")
-    return err, ms, pms
+        raise AssertionError(f"{fn_name} ({label}) disagrees with plain")
+    moved = nbytes(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask,
+                   step.tables.packed) + 2 * nbytes(num)
+    bms, by = bound(moved, group_flops(lvl, mask, c, a_h, a_w, wiener))
+    return err, ms, pms, bms, by, dict(run=run, step=step)
+
+
+def two_kernel_checks(params, x, sigma_c, dev):
+    """extract_groups and both accumulate forms vs plain at the first
+    reference SAI of the 17x17x128x128 HT step (one chunk of every group)."""
+    import torch
+
+    from lfbm5d_torch.kernels.accumulate import (
+        accumulate_groups, accumulate_groups_fused,
+        accumulate_groups_fused_plain, accumulate_groups_plain,
+    )
+    from lfbm5d_torch.kernels.extract import (
+        extract_groups, extract_groups_plain, patch_coords,
+    )
+    from lfbm5d_torch.pipeline.denoise import _flat_pad
+    from lfbm5d_torch.pipeline.engine import build_kernel_step
+
+    sp = params.ht
+    a_h, a_w, h, w, c = x.shape
+    step = build_kernel_step(sp, params.lambda_3d, a_h, a_w, h, w, c, False,
+                             "float32", str(dev), False)
+    xp = _flat_pad(x, sp.pad)
+    pl = xp.permute(3, 0, 1, 2).contiguous()
+    r = step.refs[0]
+    sy, sx, lvl, mask, bidx = step.block_match(
+        xp[..., 0].contiguous(), r, step.flat_mask(pl, sigma_c))
+    k, nd = sp.k, sp.n_disp
+    geo = (bidx, sy, sx, mask, r)
+    rows = {}
+
+    g = extract_groups(pl, *geo, k=k, nd=nd)
+    gp = extract_groups_plain(pl, *geo, k=k, nd=nd)
+    exact = bool(torch.equal(g, gp))
+    ms = cuda_ms(lambda: extract_groups(pl, *geo, k=k, nd=nd))
+    pms = cuda_ms(lambda: extract_groups_plain(pl, *geo, k=k, nd=nd), reps=2)
+    yy, xx, a_i = patch_coords(bidx, sy, sx, r, k, nd)
+    p_i = torch.arange(c, device=dev)[:, None, None, None, None]
+    flat = (((p_i * pl.shape[1] + a_i) * pl.shape[2] + yy) * pl.shape[3]
+            + xx).contiguous()  # gather indices, precomputed (not timed)
+    lib = cuda_ms(lambda: torch.take(pl, flat))
+    print(f"(e) extract_groups {tuple(g.shape)}: exact {exact}; kernel "
+          f"{ms:.3f} ms, plain {pms:.3f} ms, torch.take {lib:.3f} ms")
+    if not exact:
+        raise AssertionError("extract_groups kernel disagrees with plain")
+    bms, by = bound(nbytes(pl, g, bidx, sy, sx, mask), 0)
+    rows["extract_groups"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                  bound_ms=bms, bound_by=by, library_ms=lib)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wv = torch.rand(g.shape[:3], device=dev, generator=gen) * mask[None]
+    kai = step.tables.kaiser.reshape(-1)
+    vals = g * (wv[..., None, None] * kai[:, None])
+    nk, dk, npl, dpl = (torch.zeros_like(pl) for _ in range(4))
+
+    def fused_k():
+        accumulate_groups_fused(vals, wv, kai, *geo, nk, dk, k=k, nd=nd)
+
+    fused_k()
+    accumulate_groups_fused_plain(vals, wv, kai, *geo, npl, dpl, k=k, nd=nd)
+    rel_n = float((nk - npl).norm() / npl.norm())
+    rel_d = float((dk - dpl).norm() / dpl.norm())
+    err = max(float((nk - npl).abs().max()), float((dk - dpl).abs().max()))
+    ms = cuda_ms(fused_k)
+    pms = cuda_ms(lambda: accumulate_groups_fused_plain(
+        vals, wv, kai, *geo, npl, dpl, k=k, nd=nd), reps=2)
+    print(f"(e) accumulate_groups_fused: rel num {rel_n:.2e}, rel den "
+          f"{rel_d:.2e}, max |d| {err:.3e}; kernel {ms:.3f} ms, plain "
+          f"{pms:.3f} ms")
+    if not rel_n <= ACC_REL_MAX or not rel_d <= ACC_REL_MAX:
+        raise AssertionError("accumulate_groups_fused disagrees with plain")
+    live = float(mask.sum()) * c * k * k * pl.shape[1]
+    bms, by = bound(nbytes(vals, wv, bidx, sy, sx, mask) + 2 * nbytes(pl),
+                    3 * live)
+    rows["accumulate_groups_fused"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        library_ms=None)
+
+    nk.zero_()
+    npl.zero_()
+    accumulate_groups(vals, *geo, nk, k=k, nd=nd)
+    accumulate_groups_plain(vals, *geo, npl, k=k, nd=nd)
+    rel_n = float((nk - npl).norm() / npl.norm())
+    err = float((nk - npl).abs().max())
+    ms = cuda_ms(lambda: accumulate_groups(vals, *geo, nk, k=k, nd=nd))
+    pms = cuda_ms(lambda: accumulate_groups_plain(vals, *geo, npl, k=k,
+                                                  nd=nd), reps=2)
+    src = vals.expand(c, *yy.shape)
+    lib = cuda_ms(lambda: npl.view(-1).index_add_(0, flat.view(-1),
+                                                  src.reshape(-1)))
+    print(f"(e) accumulate_groups: rel num {rel_n:.2e}, max |d| {err:.3e}; "
+          f"kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ {lib:.3f} ms")
+    if not rel_n <= ACC_REL_MAX:
+        raise AssertionError("accumulate_groups disagrees with plain")
+    bms, by = bound(nbytes(vals, bidx, sy, sx, mask, pl), live)
+    rows["accumulate_groups"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                     bound_ms=bms, bound_by=by,
+                                     library_ms=lib)
+    return rows
+
+
+def drive(label, kernels, path, fn):
+    """Run one path with every launch count zeroed just before; the counts
+    just after. Fails if a kernel of the path never launched."""
+    for f in kernels.values():
+        f.launches = 0
+    out = fn()
+    launches = {name: f.launches for name, f in kernels.items()}
+    ran = {name: launches[name] for name in path}
+    print(f"{label} launches {launches}")
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"{label}: a kernel of the path never ran: "
+                             f"{ran}")
+    return out, launches
 
 
 def main() -> int:
@@ -167,22 +359,51 @@ def main() -> int:
         return 2
     from lfbm5d_torch import preset_denoise_params, psnr, run_bm5d
     from lfbm5d_torch.kernels import _build
+    from lfbm5d_torch.kernels.accumulate import (
+        accumulate_groups, accumulate_groups_fused,
+    )
     from lfbm5d_torch.kernels.bm import (
         cross_argmin_all_kernel, self_distances_kernel,
     )
-    from lfbm5d_torch.kernels.fused import fused_group_step
+    from lfbm5d_torch.kernels.extract import extract_groups
+    from lfbm5d_torch.kernels.fused import (
+        fused_group_step, fused_group_step_banked, group_smem_bytes,
+    )
     from lfbm5d_torch.lf import (
         add_noise_np, color_matrix, ind_initialize, synthetic_lf,
     )
     from lfbm5d_torch.pipeline.denoise import (
         _flat_pad, _sigma_channels, ht_step,
     )
+    from lfbm5d_torch.pipeline.engine import build_kernel_step
+
+    kernels = {
+        "self_distances_kernel": self_distances_kernel,
+        "cross_argmin_all_kernel": cross_argmin_all_kernel,
+        "fused_group_step": fused_group_step,
+        "fused_group_step_banked": fused_group_step_banked,
+        "extract_groups": extract_groups,
+        "accumulate_groups_fused": accumulate_groups_fused,
+        "accumulate_groups": accumulate_groups,
+    }
+    bm_path = ["self_distances_kernel", "cross_argmin_all_kernel"]
 
     # the plain versions are the references: full-precision f32 everywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
+    sig = _sigma_channels(25.0, "opp", 3, "float32", dev)
+
+    def lf_on_card(a, h, w, noise_seed, synth_seed=0):
+        clean = synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2,
+                             seed=synth_seed)
+        noisy = add_noise_np(clean, 25.0, seed=noise_seed)
+        return (torch.as_tensor(noisy, dtype=torch.float32, device=dev),
+                torch.as_tensor(clean, dtype=torch.float32, device=dev))
+
     phase = "(a)"
+    launches = {}  # kernel -> launches on the path it serves
     try:
         card = card_line()
         print(f"(a) card: {card}")
@@ -190,21 +411,17 @@ def main() -> int:
               f", CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         t0 = time.perf_counter()
-        _build.library()
+        lib = _build.library()
         nvcc_s = _build.build_seconds
         print(f"(a) kernels built and loaded in "
               f"{time.perf_counter() - t0:.1f} s (nvcc: "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.1f} s'})")
+        for line in ptxas_lines(_build.build_log):
+            print(f"(a) ptxas {line}")
 
         phase = "(b)"
         params = preset_denoise_params("matched", 25.0, chunk=128)
-        clean = synthetic_lf(9, 9, 434, 625, channels=3, disp_bg=1,
-                             disp_fg=2, seed=0)
-        noisy = add_noise_np(clean, 25.0, seed=1)
-        noisy_dev = torch.as_tensor(noisy, dtype=torch.float32, device=dev)
-        clean_dev = torch.as_tensor(clean, dtype=torch.float32, device=dev)
-        m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32,
-                            device=dev)
+        noisy_dev, clean_dev = lf_on_card(9, 434, 625, 1)
         x = noisy_dev @ m.T
         sp = params.ht
         xp = _flat_pad(x, sp.pad)
@@ -213,45 +430,43 @@ def main() -> int:
             ys=ind_initialize(434, sp.k, sp.p) + sp.pad,
             xs=ind_initialize(625, sp.k, sp.p) + sp.pad,
         )
-        rows = phase_bm(ctx)
+        rows = phase_bm("(b)", ctx)
 
         phase = "(c)"
-        sig = _sigma_channels(25.0, "opp", 3, "float32", dev)
-        small = torch.as_tensor(
-            add_noise_np(synthetic_lf(9, 9, 64, 96, channels=3, disp_bg=1,
-                                      disp_fg=2, seed=0), 25.0, seed=1),
-            dtype=torch.float32, device=dev,
-        ) @ m.T
+        small = lf_on_card(9, 64, 96, 1)[0] @ m.T
         small_basic = ht_step(small, 25.0, params.ht, params.lambda_3d,
                               "opp", engine="auto", device=dev)
-        group_check("9x9x64x96", params, small, None, sig, False)
-        group_check("9x9x64x96", params, small, small_basic, sig, True)
+        for basic, wiener in ((None, False), (small_basic, True)):
+            group_check("(c) 9x9x64x96", params, small, basic, sig, wiener,
+                        "fused_group_step")
         pilot = clean_dev @ m.T
-        e1, ms1, p1 = group_check("flagship", params, x, None, sig, False)
-        e2, ms2, p2 = group_check("flagship", params, x, pilot, sig, True)
-        rows["fused_group_step"] = dict(max_abs_err=max(e1, e2),
-                                        ms=ms1 + ms2, plain_ms=p1 + p2)
+        checks = [group_check("(c) flagship", params, x, basic, sig, wiener,
+                              "fused_group_step")
+                  for basic, wiener in ((None, False), (pilot, True))]
+        rows["fused_group_step"] = dict(
+            max_abs_err=max(r[0] for r in checks),
+            ms=sum(r[1] for r in checks), plain_ms=sum(r[2] for r in checks),
+            bound_ms=sum(r[3] for r in checks), bound_by=checks[0][4])
 
         phase = "(d)"
-        kernels = {
-            "self_distances_kernel": self_distances_kernel,
-            "cross_argmin_all_kernel": cross_argmin_all_kernel,
-            "fused_group_step": fused_group_step,
-        }
+        fused_path = bm_path + ["fused_group_step"]
         t0 = time.perf_counter()
-        basic, final = run_bm5d(noisy_dev, params, engine="auto")
+        run_bm5d(noisy_dev, params, engine="auto")
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        for fn in kernels.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        basic, final = run_bm5d(noisy_dev, params, engine="auto")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items()}
+
+        def flagship():
+            t0 = time.perf_counter()
+            out = run_bm5d(noisy_dev, params, engine="auto")
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        ((basic, final), dt), counts = drive("(d)", kernels, fused_path,
+                                             flagship)
+        launches.update({n: counts[n] for n in fused_path})
         peak = torch.cuda.max_memory_allocated()
-        if tuple(final.shape) != tuple(noisy.shape) or not bool(
+        if tuple(final.shape) != tuple(noisy_dev.shape) or not bool(
                 torch.isfinite(final).all() & torch.isfinite(basic).all()):
             raise AssertionError("flagship output has the wrong shape or "
                                  "non-finite values")
@@ -262,13 +477,11 @@ def main() -> int:
         print(f"(d) flagship 9x9x434x625 RGB matched: warm run {warm:.3f} s, "
               f"timed run {dt:.4f} s/LF = {mpix / dt:.3f} Mpix/s")
         print(f"(d) PSNR noisy {p_noisy:.3f} / basic {p_basic:.3f} / final "
-              f"{p_final:.3f} dB; launches {launches}; peak device memory "
-              f"{peak / 2**30:.2f} GiB")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel of the path never ran: {launches}")
+              f"{p_final:.3f} dB; peak device memory {peak / 2**30:.2f} GiB")
         if p_final < PSNR_FINAL_MIN or p_basic < PSNR_BASIC_MIN:
             raise AssertionError(f"flagship PSNR below the record: basic "
                                  f"{p_basic:.3f}, final {p_final:.3f}")
+        del noisy_dev, clean_dev, x, xp, ctx, pilot, basic, final
 
         tiny = add_noise_np(synthetic_lf(3, 3, 32, 40, channels=3, seed=8),
                             25.0, seed=9)
@@ -280,10 +493,120 @@ def main() -> int:
         d_max = float((f_gpu.cpu().double() - f_ref).abs().max())
         print(f"(d) 3x3x32x40 RGB kernels (f32, GPU) vs plain f64 (CPU): "
               f"PSNR delta {d_ps:+.4f} dB, max |d| {d_max:.3e}")
-        if abs(d_ps) > 0.05:
+        if abs(d_ps) > PSNR_DELTA_MAX:
             raise AssertionError("small LF disagrees with the f64 reference")
-        if "jax" in sys.modules:
-            raise AssertionError("jax was imported")
+
+        phase = "(e)"
+        for n_sim, a in ((8, 9), (8, 17), (16, 9), (16, 19), (4, 3)):
+            py = group_smem_bytes(n_sim, a * a, a, a)
+            c_ = lib.lfbm5d_group_smem_bytes(n_sim, a * a, a, a)
+            if py != c_:
+                raise AssertionError(f"group_smem_bytes({n_sim}, {a}x{a}): "
+                                     f"Python {py} vs library {c_}")
+        print("(e) group_smem_bytes: Python copy == library at 5 shapes")
+        mid, mid_clean = lf_on_card(17, 128, 128, 100)
+        xm = mid @ m.T
+        sp = params.ht
+        xpm = _flat_pad(xm, sp.pad)
+        phase_bm("(e) 17x17x128x128", dict(
+            sp=sp, match0=xpm[..., 0].contiguous(), ref=0,
+            ys=ind_initialize(128, sp.k, sp.p) + sp.pad,
+            xs=ind_initialize(128, sp.k, sp.p) + sp.pad))
+        x17 = lf_on_card(17, 32, 32, 1)[0] @ m.T
+        for basic, wiener in ((None, False), (x17 + 0.5, True)):
+            group_check("(e) 17x17x32x32 matched", params, x17, basic, sig,
+                        wiener, "fused_group_step_banked")
+        dflt = preset_denoise_params("default", 25.0)
+        for basic, wiener in ((None, False), (small_basic, True)):
+            group_check("(e) 9x9x64x96 default", dflt, small, basic, sig,
+                        wiener, "fused_group_step_banked")
+        checks = [group_check("(e) 17x17x128x128 matched", params, xm, basic,
+                              sig, wiener, "fused_group_step_banked")
+                  for basic, wiener in ((None, False), (xm + 0.5, True))]
+        rows["fused_group_step_banked"] = dict(
+            max_abs_err=max(r[0] for r in checks),
+            ms=sum(r[1] for r in checks), plain_ms=sum(r[2] for r in checks),
+            bound_ms=sum(r[3] for r in checks), bound_by=checks[0][4])
+        run = checks[0][5]["run"]
+        sweep = {g: cuda_ms(lambda: run(fused_group_step_banked, grid=g))
+                 for g in (132, 66, 33)}
+        print("(e) banked HT at 17x17x128x128, ms by grid: "
+              + ", ".join(f"{g}: {t:.3f}" for g, t in sweep.items()))
+        rows.update(two_kernel_checks(params, xm, sig, dev))
+
+        phase = "(f)"
+        banked_path = bm_path + ["fused_group_step_banked"]
+        two_path = bm_path + ["extract_groups", "accumulate_groups_fused"]
+        p17 = {}
+        for fused, path in ((None, banked_path), (False, two_path)):
+            route = build_kernel_step(params.ht, params.lambda_3d, 17, 17,
+                                      128, 128, 3, False, "float32",
+                                      str(dev), fused).route
+            (b17, f17), counts = drive(
+                f"(f) route {route}", kernels, path,
+                lambda: run_bm5d(mid, params, engine="auto", fused=fused))
+            for name in path[2:]:
+                launches[name] = counts[name]
+            p17[route] = psnr(f17, mid_clean)
+            print(f"(f) 17x17x128x128 RGB matched, route {route}: PSNR "
+                  f"noisy {psnr(mid, mid_clean):.3f} / basic "
+                  f"{psnr(b17, mid_clean):.3f} / final {p17[route]:.3f} dB")
+            if p17[route] < PSNR_17_MIN:
+                raise AssertionError(f"17x17 PSNR below the record on route "
+                                     f"{route}")
+        if abs(p17["banked"] - p17["two_kernel"]) > PSNR_DELTA_MAX:
+            raise AssertionError(f"the routes disagree: {p17}")
+        del mid, mid_clean, xm, xpm, x17
+
+        phase = "(g)"
+        t0 = time.perf_counter()
+        big, big_clean = lf_on_card(17, 512, 512, 100)
+        print(f"(g) 17x17x512x512 RGB made in {time.perf_counter() - t0:.1f} "
+              f"s (host)")
+        torch.cuda.reset_peak_memory_stats()
+
+        def full_width():
+            t0 = time.perf_counter()
+            out = run_bm5d(big, params, engine="auto")
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        ((bb, fb), dt), _ = drive("(g)", kernels, banked_path, full_width)
+        peak = torch.cuda.max_memory_allocated()
+        mpix = 17 * 17 * 512 * 512 / 1e6
+        print(f"(g) 17x17x512x512 RGB matched (route banked): {dt:.4f} s/LF "
+              f"= {mpix / dt:.3f} Mpix/s; PSNR noisy "
+              f"{psnr(big, big_clean):.3f} / basic {psnr(bb, big_clean):.3f}"
+              f" / final {psnr(fb, big_clean):.3f} dB; peak device memory "
+              f"{peak / 2**30:.2f} GiB")
+        if not bool(torch.isfinite(fb).all()) or fb.shape != big.shape:
+            raise AssertionError("17x17x512x512 output is not finite")
+        del big, big_clean, bb, fb
+
+        phase = "(h)"
+        lf_h = add_noise_np(synthetic_lf(9, 9, 24, 32, channels=3, seed=0),
+                            25.0, seed=1)
+        clean_h = synthetic_lf(9, 9, 24, 32, channels=3, seed=0)
+        for preset in ("default", "robust"):
+            ph = preset_denoise_params(preset, 25.0)
+            (_, f_gpu), _ = drive(
+                f"(h) {preset}", kernels, banked_path,
+                lambda: run_bm5d(lf_h, ph, engine="auto", device=dev))
+            t0 = time.perf_counter()
+            _, f_ref = run_bm5d(lf_h, ph, dtype="float64", engine="torch",
+                                device=dev)
+            d_ps = psnr(f_gpu, clean_h) - psnr(f_ref, clean_h)
+            print(f"(h) {preset} 9x9x24x32 RGB: kernels (route banked, f32) "
+                  f"{psnr(f_gpu, clean_h):.3f} dB vs plain f64 "
+                  f"{psnr(f_ref, clean_h):.3f} dB (delta {d_ps:+.4f}; plain "
+                  f"f64 {time.perf_counter() - t0:.1f} s)")
+            if abs(d_ps) > PSNR_DELTA_MAX:
+                raise AssertionError(f"{preset} preset disagrees with the "
+                                     f"f64 reference")
+        bad = [n for n in sys.modules
+               if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
+        if bad:
+            raise AssertionError(f"the JAX package or jax was imported: {bad}")
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -296,11 +619,20 @@ def main() -> int:
                                     "lfbm5d_tpu/kernels/bm.py:223"),
         "fused_group_step": ("lfbm5d_torch/csrc/fused.cu",
                              "lfbm5d_tpu/kernels/fused.py:433"),
+        "fused_group_step_banked": ("lfbm5d_torch/csrc/fused_banked.cu",
+                                    "lfbm5d_tpu/kernels/fused.py:796"),
+        "extract_groups": ("lfbm5d_torch/csrc/twokernel.cu",
+                           "lfbm5d_tpu/kernels/extract.py:64"),
+        "accumulate_groups_fused": ("lfbm5d_torch/csrc/twokernel.cu",
+                                    "lfbm5d_tpu/kernels/accumulate.py:106"),
+        "accumulate_groups": ("lfbm5d_torch/csrc/twokernel.cu",
+                              "lfbm5d_tpu/kernels/accumulate.py:185"),
     }
     out = []
     for name, (src, rep) in replaces.items():
+        row = {"library_ms": None, **rows[name]}
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                        launches=launches[name], **rows[name]))
+                        launches=launches.get(name, 0), **row))
     print(card_line())
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """lfbm5d_torch — the LFBM5D light-field denoiser in PyTorch, with its hot
 loops as hand-written CUDA kernels for Hopper (sm_90a).
 
-A port of `lfbm5d_tpu` (the JAX reference, which stays beside it). It reuses
-the reference's numpy-only modules (`lfbm5d_tpu.config`, `lf.color`,
-`lf.pad`, `lf.synth`, `lf.noise`) and never imports jax.
+A port of `lfbm5d_tpu` (the JAX reference, which stays beside it). It keeps
+its own copies of the reference's numpy-only modules (`config`, `lf.color`,
+`lf.pad`, `lf.synth`, `lf.noise`) and imports neither jax nor `lfbm5d_tpu`.
 """
 
-from lfbm5d_tpu.config import (  # noqa: F401
+from lfbm5d_torch.config import (  # noqa: F401
     DenoiseParams,
     PRESETS,
     StepParams,

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels (lfbm5d_torch/csrc/*.cu) at first use.
 
-nvcc compiles every source into one shared library with a plain C interface
-for sm_90a, loaded with ctypes: pointers and the stream as c_void_p, ints as
-c_int. The library lands in `build/kernels/<hash>/` at the repository root,
-keyed by a hash of the sources and flags, so a checkout builds once and
-reuses it. Every C entry point returns cudaGetLastError(); `check` raises on
+nvcc compiles every source (one process per `.cu`, all started together)
+and links them into one shared library with a plain C interface for sm_90a,
+loaded with ctypes: pointers and the stream as c_void_p, ints as c_int. The
+library lands in `build/kernels/<hash>/` at the repository root, keyed by a
+hash of the sources, headers and flags, so a checkout builds once and reuses
+it. Every C entry point returns cudaGetLastError(); `check` raises on
 anything but 0.
 """
 
@@ -21,7 +22,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -29,10 +30,15 @@ _SIGNATURES = {
     "lfbm5d_cross_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "lfbm5d_group_smem_bytes": [_I, _I, _I, _I],
     "lfbm5d_group_step": [_P] * 12 + [_I] * 13 + [_F, _I, _P],
+    "lfbm5d_banked_smem_bytes": [_I, _I, _I, _I],
+    "lfbm5d_group_step_banked": [_P] * 13 + [_I] * 13 + [_F, _I, _P],
+    "lfbm5d_extract_groups": [_P] * 6 + [_I] * 10 + [_P],
+    "lfbm5d_accumulate_groups": [_P] * 9 + [_I] * 10 + [_P],
 }
 
 _lib = None
 build_seconds = None  # wall time of this process' nvcc run (None: cached)
+build_log = ""  # ptxas' report (registers, spills) of this process' build
 
 
 def _nvcc() -> str:
@@ -50,26 +56,47 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the sources if this hash has no library yet; its path."""
-    global build_seconds
+    global build_seconds, build_log
     srcs = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in sorted(SRC_DIR.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_ROOT / h.hexdigest()[:16] / "liblfbm5d_kernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in srcs:
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed, log = [], []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        log.append(err)
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out.with_name(f"{out.name}.{tag}")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(log)
     return out
 
 

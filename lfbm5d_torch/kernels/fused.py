@@ -1,11 +1,19 @@
-"""Group-stage kernel (csrc/fused.cu) and its plain version.
+"""Group-stage kernels (csrc/fused.cu, csrc/fused_banked.cu) and their plain
+version.
 
 `fused_group_step` replaces lfbm5d_tpu/kernels/fused.py::fused_group_step
 (and, folded into its prologue, lfbm5d_tpu/kernels/gather.py::sample_doff):
 for every reference patch t of one reference SAI it extracts the 5D group at
 the similar-patch positions and their per-SAI disparity offsets, runs the
 forward transform chain, HT or Wiener shrinkage, the inverse chain, and adds
-the weighted estimate into the numerator.
+the weighted estimate into the numerator. It holds the group in shared
+memory, so it takes groups of at most 232,448 bytes (`group_smem_bytes`).
+
+`fused_group_step_banked` replaces lfbm5d_tpu/kernels/fused.py::
+fused_group_step_banked: the same function for groups beyond that (17x17
+grids, N=16 at 9x9; A <= 384), with the group in a per-block device-memory
+workspace. Both kernels share their passes (csrc/group_stage.cuh) and the
+plain version below.
 
 Contract (kernel and plain version alike), on the kernel's planar layout:
   noisy, basic   [C, A, Hp, Wp]   padded LF planes (basic: Wiener only)
@@ -30,7 +38,7 @@ from dataclasses import dataclass
 
 import torch
 
-from lfbm5d_tpu.config import StepParams
+from lfbm5d_torch.config import StepParams
 from lfbm5d_torch.kernels._build import check, library, require, stream_of
 from lfbm5d_torch.kernels.gather import sample_doff
 from lfbm5d_torch.ops.distances import center_index, displacements
@@ -38,8 +46,35 @@ from lfbm5d_torch.ops.shrinkage import filter_groups
 from lfbm5d_torch.transforms import matrices as tm
 from lfbm5d_torch.transforms.apply import GroupTransforms
 
-_MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+MAX_N = 16  # stack depth the group kernels take
+MAX_SIDE = 16  # angular grid side of the shared-memory kernel
+MAX_SIDE_BANKED = 24  # angular grid side of the banked kernel
+MAX_A_BANKED = 384  # SAIs of the banked kernel (3 TPU banks of 128)
 _CHUNK = 256  # groups per gather in the plain version (memory bound only)
+
+
+def group_smem_bytes(n_sim: int, a: int, a_h: int, a_w: int) -> int:
+    """Shared memory of the group kernel in bytes: a copy of
+    csrc/fused.cu::lfbm5d_group_smem_bytes (group [k^2][(N*A)|1], tables,
+    patch origins), so routes are decided without the library."""
+    levels = n_sim.bit_length()  # stack sizes 1, 2, ..., N
+    tables = 3 * 64 + 2 * (a_h * a_h + a_w * a_w) + 2 * levels * n_sim**2
+    return 4 * (64 * ((n_sim * a) | 1) + tables + 2 * n_sim * a)
+
+
+def group_fits(sp: StepParams, a_h: int, a_w: int) -> bool:
+    """True if the shared-memory group kernel takes this step's shapes."""
+    return (sp.k == 8 and not sp.use_sd and sp.n_sim <= MAX_N
+            and a_h <= MAX_SIDE and a_w <= MAX_SIDE
+            and group_smem_bytes(sp.n_sim, a_h * a_w, a_h, a_w) <= MAX_SMEM)
+
+
+def banked_fits(sp: StepParams, a_h: int, a_w: int) -> bool:
+    """True if the banked group kernel takes this step's shapes."""
+    return (sp.k == 8 and not sp.use_sd and sp.n_sim <= MAX_N
+            and a_h <= MAX_SIDE_BANKED and a_w <= MAX_SIDE_BANKED
+            and a_h * a_w <= MAX_A_BANKED)
 
 
 @dataclass(frozen=True)
@@ -114,19 +149,9 @@ def fused_group_step_plain(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                        accumulate=True)
 
 
-def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
-                     sigma_c, tables: GroupTables, num, wden, *, k: int,
-                     nd: int, lambda_3d: float, wiener: bool,
-                     use_sd: bool = False) -> None:
-    """One reference SAI's group stage, accumulated into num/wden in place
-    (contract in the module docstring). CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
-    if noisy.device.type == "cpu":
-        return fused_group_step_plain(
-            noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
-            num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
-            use_sd=use_sd,
-        )
+def _check(noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables,
+           num, wden, k, wiener, use_sd, what):
+    """Raise unless the kernels take these tensors; (c, a, hp, wp, t, n)."""
     dev = noisy.device
     f32 = torch.float32
     require(noisy, "noisy", f32, 4)
@@ -145,43 +170,108 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
     require(wden, "wden", f32, 4, dev)
     require(tables.packed, "tables.packed", f32, 1, dev)
     t, n_sim = sim_y.shape
-    if t == 0:
-        return
-    a_h, a_w = tables.a_h, tables.a_w
-    v0, v1 = hp - k + 1, wp - k + 1
     if k != 8:
-        raise ValueError(f"group kernel is built for k=8, got k={k}")
+        raise ValueError(f"{what}: built for k=8, got k={k}")
     if use_sd:
-        raise ValueError("group kernel does not take use_sd weights")
-    if n_sim > 16 or a_h > 16 or a_w > 16:
+        raise ValueError(f"{what}: does not take use_sd weights")
+    if (bidx.shape != (a, hp - k + 1, wp - k + 1)
+            or sim_x.shape != (t, n_sim) or lvl.shape != (t,)
+            or mask.shape != (t, n_sim) or sigma_c.shape != (c,)
+            or num.shape != noisy.shape or wden.shape != noisy.shape
+            or tables.a_h * tables.a_w != a):
+        raise ValueError(f"{what}: inconsistent shapes")
+    return c, a, hp, wp, t, n_sim
+
+
+def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
+                     sigma_c, tables: GroupTables, num, wden, *, k: int,
+                     nd: int, lambda_3d: float, wiener: bool,
+                     use_sd: bool = False) -> None:
+    """One reference SAI's group stage, accumulated into num/wden in place
+    (contract in the module docstring). CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    if noisy.device.type == "cpu":
+        return fused_group_step_plain(
+            noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
+            num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
+            use_sd=use_sd,
+        )
+    c, a, hp, wp, t, n_sim = _check(
+        noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables, num,
+        wden, k, wiener, use_sd, "group kernel")
+    a_h, a_w = tables.a_h, tables.a_w
+    if n_sim > MAX_N or a_h > MAX_SIDE or a_w > MAX_SIDE:
         raise ValueError(f"group kernel takes N, aH, aW <= 16; got N={n_sim}, "
                          f"{a_h}x{a_w}")
-    if (bidx.shape != (a, v0, v1) or sim_x.shape != (t, n_sim)
-            or lvl.shape != (t,) or mask.shape != (t, n_sim)
-            or sigma_c.shape != (c,) or num.shape != noisy.shape
-            or wden.shape != noisy.shape or a_h * a_w != a):
-        raise ValueError("group kernel: inconsistent shapes")
-    lib = library()
-    smem = lib.lfbm5d_group_smem_bytes(n_sim, a, a_h, a_w)
-    if smem > _MAX_SMEM:
+    smem = group_smem_bytes(n_sim, a, a_h, a_w)
+    if smem > MAX_SMEM:
         raise ValueError(
             f"group kernel: N={n_sim}, A={a} needs {smem} bytes of shared "
-            f"memory per block, over the {_MAX_SMEM} a block may use"
+            f"memory per block, over the {MAX_SMEM} a block may use"
         )
+    if t == 0:
+        return
+    dev = noisy.device
     grid = min(t, torch.cuda.get_device_properties(dev).multi_processor_count)
-    work = (torch.empty((grid, k * k * n_sim * a), dtype=f32, device=dev)
-            if wiener else None)
-    rc = lib.lfbm5d_group_step(
+    work = (torch.empty((grid, k * k * n_sim * a), dtype=torch.float32,
+                        device=dev) if wiener else None)
+    rc = library().lfbm5d_group_step(
         noisy.data_ptr(), basic.data_ptr() if wiener else None,
         bidx.data_ptr(), sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
         mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
         num.data_ptr(), wden.data_ptr(),
         work.data_ptr() if wiener else None, t, n_sim, a, a_h,
-        a_w, c, hp, wp, v0, v1, nd, ref, int(wiener), float(lambda_3d), grid,
-        stream_of(noisy),
+        a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref, int(wiener),
+        float(lambda_3d), grid, stream_of(noisy),
     )
     check(rc, "fused_group_step")
     fused_group_step.launches += 1
 
 
+def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
+                            ref: int, sigma_c, tables: GroupTables, num, wden,
+                            *, k: int, nd: int, lambda_3d: float,
+                            wiener: bool, use_sd: bool = False,
+                            grid: int | None = None) -> None:
+    """`fused_group_step` for groups beyond one block's shared memory (the
+    same contract and plain version). grid: blocks of the kernel, one per
+    SM by default (the fastest grid measured on an H100: PERF.md)."""
+    if noisy.device.type == "cpu":
+        return fused_group_step_plain(
+            noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
+            num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
+            use_sd=use_sd,
+        )
+    c, a, hp, wp, t, n_sim = _check(
+        noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables, num,
+        wden, k, wiener, use_sd, "banked group kernel")
+    a_h, a_w = tables.a_h, tables.a_w
+    if (n_sim > MAX_N or a_h > MAX_SIDE_BANKED or a_w > MAX_SIDE_BANKED
+            or a > MAX_A_BANKED):
+        raise ValueError(
+            f"banked group kernel takes N <= {MAX_N}, aH, aW <= "
+            f"{MAX_SIDE_BANKED}, A <= {MAX_A_BANKED}; got N={n_sim}, "
+            f"{a_h}x{a_w}")
+    if t == 0:
+        return
+    dev = noisy.device
+    grid = min(t, grid
+               or torch.cuda.get_device_properties(dev).multi_processor_count)
+    size = k * k * n_sim * a
+    ws = torch.empty(((2 if wiener else 1) * grid, size), dtype=torch.float32,
+                     device=dev)
+    rc = library().lfbm5d_group_step_banked(
+        noisy.data_ptr(), basic.data_ptr() if wiener else None,
+        bidx.data_ptr(), sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
+        mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
+        num.data_ptr(), wden.data_ptr(),
+        ws[grid:].data_ptr() if wiener else None, ws.data_ptr(), t, n_sim, a,
+        a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref, int(wiener),
+        float(lambda_3d), grid, stream_of(noisy),
+    )
+    check(rc, "fused_group_step_banked")
+    fused_group_step_banked.launches += 1
+
+
 fused_group_step.launches = 0
+fused_group_step_banked.launches = 0

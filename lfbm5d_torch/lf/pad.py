@@ -1,4 +1,6 @@
-"""Symmetric padding for tensors, by index (counterpart of lfbm5d_tpu.lf.pad).
+"""Symmetric padding for tensors, by index, and the reference grids
+(counterpart of lfbm5d_tpu.lf.pad; `ind_initialize` and `ref_sai_grid` are
+copies of its numpy functions).
 
 The reference pads every SAI edge-inclusively, as `np.pad(mode="symmetric")`
 does. torch's `F.pad(mode="reflect")` is edge-EXCLUSIVE, so the port builds
@@ -13,7 +15,27 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lfbm5d_tpu.lf.pad import ind_initialize, ref_sai_grid  # noqa: F401
+
+def ind_initialize(size: int, k: int, p: int) -> np.ndarray:
+    """Reference-patch top-left coordinates along one axis of an unpadded
+    SAI: every `p` pixels from 0, plus a final position flushed to the
+    boundary (size - k) if the stepped grid does not land on it."""
+    last = size - k
+    if last < 0:
+        raise ValueError(f"image extent {size} smaller than patch size {k}")
+    ind = list(range(0, last + 1, p))
+    if ind[-1] != last:
+        ind.append(last)
+    return np.asarray(ind, dtype=np.int32)
+
+
+def ref_sai_grid(a_h: int, a_w: int, p_ang: int = 1) -> np.ndarray:
+    """Flattened indices of the SAIs that serve as references: every SAI for
+    p_ang == 1, else a strided angular grid with boundary flush
+    (`ind_initialize` with k=1). Groups still span every SAI."""
+    ss = ind_initialize(a_h, 1, p_ang)
+    ts = ind_initialize(a_w, 1, p_ang)
+    return (ss[:, None] * a_w + ts[None, :]).reshape(-1).astype(np.int32)
 
 
 @lru_cache(maxsize=None)

@@ -10,7 +10,10 @@ numerator/denominator accumulators [A, Hp, Wp, C].
 Engines (mirroring the reference's `_resolve_engine`):
   'auto'  -> `pipeline.engine.build_kernel_step`, whose kernel wrappers
              launch the CUDA kernels for CUDA tensors and run their plain
-             versions for CPU tensors;
+             versions for CPU tensors; its route ('fused', 'banked' or
+             'two_kernel') follows from the shapes, or from `fused` as in
+             the reference (None: by shape; True: the fused family; False:
+             the two-kernel path);
   'torch' -> `_build_step` here, plain torch on any device.
 Only the reference's 'single' execution tier exists: its launched and banked
 tiers work around TPU faults.
@@ -23,8 +26,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lfbm5d_tpu.config import DenoiseParams, StepParams
-from lfbm5d_tpu.lf.color import channel_sigma_scales, color_matrix
+from lfbm5d_torch.config import DenoiseParams, StepParams
+from lfbm5d_torch.lf.color import channel_sigma_scales, color_matrix
 from lfbm5d_torch.kernels.gather import sample_doff
 from lfbm5d_torch.lf.pad import ind_initialize, pad_lf, ref_sai_grid
 from lfbm5d_torch.ops.distances import (
@@ -126,12 +129,14 @@ def _build_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int, h: int,
 
 
 def _raw_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, wiener, dtype, engine,
-              device):
+              device, fused=None):
     if engine == "auto":
         from lfbm5d_torch.pipeline.engine import build_kernel_step
 
         return build_kernel_step(sp, lambda_3d, a_h, a_w, h, w, c, wiener,
-                                 dtype, device)
+                                 dtype, device, fused)
+    if fused is not None:
+        raise ValueError("fused selects a route of engine='auto'")
     if engine == "torch":
         return _build_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, wiener,
                            dtype, device)
@@ -217,14 +222,15 @@ def wiener_step(x, basic, sigma: float, sp: StepParams,
 @lru_cache(maxsize=None)
 def build_denoise_fn(params: DenoiseParams, a_h: int, a_w: int, h: int,
                      w: int, c: int, dtype: str = "float32",
-                     engine: str = "auto", device: str = "cpu"):
+                     engine: str = "auto", device: str = "cpu",
+                     fused: bool | None = None):
     """The full per-LF pipeline (color -> HT -> Wiener -> inverse color) as
     fn(lf, sigma_c) -> (basic, final) for one geometry and device."""
     dt = _dtype(dtype)
     ht_raw = _raw_step(params.ht, params.lambda_3d, a_h, a_w, h, w, c,
-                       params.chunk, False, dtype, engine, device)
+                       params.chunk, False, dtype, engine, device, fused)
     wn_raw = _raw_step(params.wiener, 0.0, a_h, a_w, h, w, c, params.chunk,
-                       True, dtype, engine, device)
+                       True, dtype, engine, device, fused)
     use_color = c == 3 and params.color_space != "rgb"
     if use_color:
         m = np.asarray(color_matrix(params.color_space))
@@ -254,7 +260,8 @@ def build_denoise_fn(params: DenoiseParams, a_h: int, a_w: int, h: int,
 
 
 def run_bm5d(noisy_lf, params: DenoiseParams, dtype: str = "float32",
-             engine: str = "auto", device=None, sigma_c=None):
+             engine: str = "auto", device=None, sigma_c=None,
+             fused: bool | None = None):
     """Full two-step pipeline. noisy_lf: [aH,aW,H,W,C] RGB/gray in [0,255]
     (numpy array or tensor).
 
@@ -263,13 +270,16 @@ def run_bm5d(noisy_lf, params: DenoiseParams, dtype: str = "float32",
     (CUDA kernels for CUDA tensors, their plain versions on the CPU) or
     'torch' (plain torch everywhere). sigma_c optionally overrides the
     per-channel noise stds (tensor [C]); params.sigma is then ignored.
+    fused picks the route of engine 'auto' (pipeline/engine.py): None by
+    shape, True the fused family (raises where no group kernel takes the
+    shape), False the two-kernel path.
     """
     if device is None:
         device = noisy_lf.device if torch.is_tensor(noisy_lf) else "cpu"
     lf = torch.as_tensor(noisy_lf, dtype=_dtype(dtype), device=device)
     a_h, a_w, h, w, c = lf.shape
     fn = build_denoise_fn(params, a_h, a_w, h, w, c, dtype, engine,
-                          str(lf.device))
+                          str(lf.device), fused)
     if sigma_c is None:
         sigma_c = _sigma_channels(params.sigma, params.color_space, c, dtype,
                                   lf.device)

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lfbm5d_tpu.config import StepParams
+from lfbm5d_torch.config import StepParams
 from lfbm5d_torch.transforms import matrices as tm
 
 

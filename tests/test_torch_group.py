@@ -12,6 +12,7 @@ from lfbm5d_tpu.config import StepParams
 from lfbm5d_tpu.lf.noise import add_noise_np
 from lfbm5d_tpu.lf.synth import synthetic_lf_multi
 from lfbm5d_tpu.pipeline import denoise as jden
+from lfbm5d_torch.config import from_reference
 from lfbm5d_torch.kernels.fused import GroupTables, fused_group_step
 from lfbm5d_torch.pipeline import denoise as tden
 from lfbm5d_torch.pipeline.engine import build_kernel_step, kaiser_conv
@@ -59,13 +60,15 @@ def _inputs(sp, noisy, basic, wiener):
 @pytest.mark.parametrize("engine", ["kernel-step", "dense"])
 def test_step_num_den_match_reference(lf_pair, case, engine):
     sp, wiener = CASES[case]
+    tsp = from_reference(sp)
     lam = 0.0 if wiener else 2.7
     noisy, basic = lf_pair
     xp, mp, sig, bp = _inputs(sp, noisy, basic, wiener)
     if engine == "kernel-step":
-        step = build_kernel_step(sp, lam, AH, AW, H, W, C, wiener, "float64")
+        step = build_kernel_step(tsp, lam, AH, AW, H, W, C, wiener,
+                                 "float64")
     else:
-        step = tden._build_step(sp, lam, AH, AW, H, W, C, 64, wiener,
+        step = tden._build_step(tsp, lam, AH, AW, H, W, C, 64, wiener,
                                 "float64")
     num, den = step(xp, mp, sig, bp)
     jstep = jden._build_step(sp, lam, AH, AW, H, W, C, 64, wiener, "float64")
@@ -94,7 +97,7 @@ def test_kaiser_conv_spreads_origin_weights():
 
 
 def test_group_tables_packing():
-    sp = CASES["ht"][0]
+    sp = from_reference(CASES["ht"][0])
     t = GroupTables.build(sp, 3, 5)
     levels = 4  # log2(8) + 1
     assert t.packed.dtype == torch.float32
@@ -108,7 +111,7 @@ def test_group_tables_packing():
 
 def test_group_wrapper_raises_off_cpu_without_cuda():
     """A non-CPU tensor never falls back to the plain version."""
-    sp = CASES["ht"][0]
+    sp = from_reference(CASES["ht"][0])
     meta = torch.empty((C, AH * AW, 34, 42), device="meta")
     tables = GroupTables.build(sp, AH, AW, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -119,7 +122,7 @@ def test_group_wrapper_raises_off_cpu_without_cuda():
 
 def test_plain_group_step_accumulates_in_place(lf_pair):
     """Two references accumulate into the same num/wden tensors."""
-    sp, _ = CASES["ht"]
+    sp = from_reference(CASES["ht"][0])
     noisy, _ = lf_pair
     xp, mp, sig, _ = _inputs(sp, noisy, None, False)
     step = build_kernel_step(sp, 2.7, AH, AW, H, W, C, False, "float64")

@@ -17,7 +17,9 @@ from lfbm5d_tpu.lf.noise import add_noise_np
 from lfbm5d_tpu.oracle import oracle_denoise
 from lfbm5d_tpu.pipeline import ht_step as j_ht_step
 from lfbm5d_tpu.pipeline import run_bm5d as j_run_bm5d
-from lfbm5d_torch import psnr, run_bm5d
+from lfbm5d_torch import psnr
+from lfbm5d_torch import run_bm5d as _run_bm5d
+from lfbm5d_torch.config import from_reference
 from lfbm5d_torch.pipeline import ht_step
 
 torch.set_num_threads(2)
@@ -25,6 +27,11 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(n_sim=8, n_search=4, n_disp=1, k=8, p=3)
 ENGINES = ["torch", "auto"]
+
+
+def run_bm5d(noisy, params, **kw):
+    """The port's run_bm5d on the port's copy of the reference params."""
+    return _run_bm5d(noisy, from_reference(params), **kw)
 
 
 def tiny_params(sigma=20.0):
@@ -118,7 +125,8 @@ def test_variants_match_jax_xla(variant):
 
 def test_ht_step_and_sigma_override(tiny_case):
     _, noisy, params, _ = tiny_case
-    got = ht_step(noisy, 20.0, params.ht, 2.7, "rgb", 32, dtype="float64")
+    got = ht_step(noisy, 20.0, from_reference(params.ht), 2.7, "rgb", 32,
+                  dtype="float64")
     want = np.asarray(j_ht_step(noisy, 20.0, params.ht, 2.7, "rgb", 32,
                                 dtype="float64"))
     assert np.abs(got.numpy() - want).max() < 1e-9
@@ -137,7 +145,8 @@ def test_unknown_engine_raises(tiny_case):
 
 def test_import_and_run_without_jax():
     """In a fresh process (this one imported jax via conftest), the port
-    imports and denoises on the CPU with jax never loaded."""
+    imports and denoises on the CPU with neither jax nor the JAX package
+    (`lfbm5d_tpu`) ever loaded."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -151,7 +160,9 @@ def test_import_and_run_without_jax():
         "                 20.0, seed=1)\n"
         "b, f = lfbm5d_torch.run_bm5d(x, p)\n"
         "assert f.shape == x.shape and bool(torch.isfinite(f).all())\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.startswith('jax') or m.startswith('lfbm5d_tpu')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

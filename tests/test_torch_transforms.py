@@ -7,6 +7,7 @@ import torch
 
 from lfbm5d_tpu.config import StepParams
 from lfbm5d_tpu.transforms import apply as japply
+from lfbm5d_torch.config import from_reference
 from lfbm5d_tpu.transforms import matrices as jm
 from lfbm5d_torch.transforms import apply as tapply
 from lfbm5d_torch.transforms import matrices as tm
@@ -57,7 +58,8 @@ def test_forward_inverse_5d_match_jax(variant):
     g = rng.standard_normal((4, 8, 3, 3, 8, 8, 2)) * 50.0
     lvl = np.array([0, 1, 2, 3], np.int32)
     jgt = japply.GroupTransforms.build(sp, 3, 3, dtype=jnp.float64)
-    tgt = tapply.GroupTransforms.build(sp, 3, 3, dtype=torch.float64)
+    tgt = tapply.GroupTransforms.build(from_reference(sp), 3, 3,
+                                       dtype=torch.float64)
     jf = np.asarray(japply.forward_5d(jnp.asarray(g), jnp.asarray(lvl), jgt))
     tf = tapply.forward_5d(torch.as_tensor(g), torch.as_tensor(lvl).long(),
                            tgt)
@@ -79,7 +81,8 @@ def test_from_reference_equals_own_constants(variant):
         for f in tapply._FIELDS
     })
     got = tapply.from_reference(ref, dtype=torch.float64)
-    want = tapply.GroupTransforms.build(sp, 3, 5, dtype=torch.float64)
+    want = tapply.GroupTransforms.build(from_reference(sp), 3, 5,
+                                        dtype=torch.float64)
     for f in tapply._FIELDS:
         g, w = getattr(got, f), getattr(want, f)
         assert torch.equal(g, w), f
