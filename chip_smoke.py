@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (lfbm5d_torch) on one GPU.
 
-Usage: python chip_smoke.py        (from the repository root, one CUDA card)
+Usage (from the repository root, one CUDA card):
+
+    python chip_smoke.py                    the phases below
+    python chip_smoke.py --profile [CELLS]  where the device time goes: each
+        cell of CELLS (comma-separated names; all by default) once to warm
+        up, then once under torch.profiler: wall time, device busy time,
+        the device's idle share and device time by kernel group
 
 Phases; any failure exits non-zero without the final "ok" line:
   (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a);
@@ -20,9 +26,9 @@ Phases; any failure exits non-zero without the final "ok" line:
   (e) the kernels of the 17x17 and N=16 paths vs their plain versions:
       Python group_smem_bytes == the library's; BM at A=289 (mismatch
       <= 1e-3); the banked group kernel, HT and Wiener, within 1e-4 relative
-      at 17x17x32x32 RGB matched and 9x9x64x96 RGB `default` (N=16), with a
-      grid sweep at 17x17x128x128; extract_groups exact and the two
-      accumulate forms within 1e-5 relative at one 17x17x128x128 reference;
+      at 17x17x32x32 RGB matched, 9x9x64x96 RGB `default` (N=16) and
+      17x17x128x128; extract_groups exact and the two accumulate forms
+      within 1e-5 relative at one 17x17x128x128 reference;
   (f) 17x17x128x128 RGB matched (synth seed 0, disp 1/2, noise seed 100,
       sigma 25: the config-5 probe content) through engine="auto" (route
       "banked") and fused=False (route "two_kernel"): final PSNR >= 27.907
@@ -33,7 +39,13 @@ Phases; any failure exits non-zero without the final "ok" line:
   (h) the `default` and `robust` presets at 9x9x24x32 RGB through
       engine="auto" on the card (route "banked"), each within 0.05 dB of the
       float64 plain pipeline (engine="torch"; run on the card, where it
-      takes seconds instead of minutes on the host's CPU).
+      takes seconds instead of minutes on the host's CPU);
+  (i) the `default` and `robust` presets at the flagship's full size
+      (9x9x434x625 RGB, noise seed 1), one timed run each through
+      engine="auto" (route "banked"): s/LF, Mpix/s, PSNR and peak memory;
+      final PSNR >= the reference's record less 0.05 dB (default 28.416,
+      robust 28.552) and s/LF under a ceiling that keeps the script inside
+      its time limit.
 Then the card's name and power limit, a {"kernels": [...]} line (launches
 from the path each kernel serves; ms and plain_ms at that path's shapes;
 bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
@@ -51,12 +63,38 @@ import traceback
 PSNR_FINAL_MIN = 28.37  # recorded 28.42 dB less 0.05 dB
 PSNR_BASIC_MIN = 27.64  # recorded 27.69 dB less 0.05 dB
 PSNR_17_MIN = 27.907  # recorded 27.957 dB (17x17x128x128 matched) less 0.05
+# flagship LF, final PSNR: recorded 28.416 dB (default) and 28.552 dB
+# (robust: default + 0.136) less 0.05 dB; s/LF ceilings guard the time limit
+PRESET_MIN = {"default": (28.366, 240.0), "robust": (28.502, 90.0)}
 BM_MISMATCH_MAX = 1e-3
 GROUP_REL_MAX = 1e-4
 ACC_REL_MAX = 1e-5
 PSNR_DELTA_MAX = 0.05
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
+
+# name -> (angular side, H, W, noise seed, preset, fused) of the synthetic
+# two-plane LF (synth seed 0, disp 1/2, sigma 25, RGB) the phases run
+CELLS = {
+    "flagship": (9, 434, 625, 1, "matched", None),
+    "17-banked": (17, 128, 128, 100, "matched", None),
+    "17-two-kernel": (17, 128, 128, 100, "matched", False),
+    "17-512": (17, 512, 512, 100, "matched", None),
+    "17-512-two-kernel": (17, 512, 512, 100, "matched", False),
+    "flagship-default": (9, 434, 625, 1, "default", None),
+    "flagship-robust": (9, 434, 625, 1, "robust", None),
+}
+# kernel-name fragment -> group of the profile, first match wins
+KERNEL_GROUPS = (
+    ("banked_kernel", "group kernel, banked (fused_banked.cu)"),
+    ("group_kernel", "group kernel (fused.cu)"),
+    ("extract_kernel", "extract (twokernel.cu)"),
+    ("accumulate_kernel", "accumulate (twokernel.cu)"),
+    ("cross_argmin", "cross-argmin (bm.cu)"),
+    ("self_distances", "self-BM (bm.cu)"),
+    ("gemm", "cuBLAS GEMMs"),
+    ("sort", "argsort (select_similar)"),
+)
 
 
 def card_line() -> str:
@@ -96,6 +134,30 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def lf_on_card(a, h, w, noise_seed):
+    """(noisy, clean) f32 on the card: the two-plane LF of CELLS."""
+    import torch
+
+    from lfbm5d_torch.lf import add_noise_np, synthetic_lf
+
+    clean = synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2, seed=0)
+    noisy = add_noise_np(clean, 25.0, seed=noise_seed)
+    return (torch.as_tensor(noisy, dtype=torch.float32, device="cuda:0"),
+            torch.as_tensor(clean, dtype=torch.float32, device="cuda:0"))
+
+
+def timed_run(lf, params, **kw):
+    """run_bm5d ended by a synchronize: ((basic, final), seconds)."""
+    import torch
+
+    from lfbm5d_torch import run_bm5d
+
+    t0 = time.perf_counter()
+    out = run_bm5d(lf, params, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def bound(nbytes: float, flops: float):
@@ -342,7 +404,42 @@ def drive(label, kernels, path, fn):
     return out, launches
 
 
-def main() -> int:
+def profile(names) -> None:
+    """Device time by kernel group of one warm run per cell."""
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params
+
+    print(card_line())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name in names:
+        a, h, w, noise_seed, preset, fused = CELLS[name]
+        params = preset_denoise_params(preset, 25.0)
+        noisy = lf_on_card(a, h, w, noise_seed)[0]
+        timed_run(noisy, params, fused=fused)
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = timed_run(noisy, params, fused=fused)[1]
+        by_group, launches = {}, {}
+        for ev in prof.key_averages():
+            if (ev.self_device_time_total <= 0
+                    or ev.device_type != torch.autograd.DeviceType.CUDA):
+                continue
+            g = next((grp for frag, grp in KERNEL_GROUPS
+                      if frag in ev.key.lower()), "torch elementwise, copies")
+            by_group[g] = by_group.get(g, 0.0) + ev.self_device_time_total / 1e3
+            launches[g] = launches.get(g, 0) + ev.count
+        busy = sum(by_group.values())
+        print(f"cell {name} ({a}x{a}x{h}x{w} RGB, {preset}, fused={fused}): "
+              f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
+              f"share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+        for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+            print(f"  {g}: {ms:.2f} ms ({ms / busy:.1%}), {launches[g]} "
+                  f"launches")
+        del noisy
+
+
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -357,6 +454,12 @@ def main() -> int:
         print(f"chip_smoke: the lfbm5d_torch package is missing ({e}); run "
               "from the repository root", file=sys.stderr)
         return 2
+    # the plain versions are the references: full-precision f32 everywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--profile"]:
+        profile(argv[1].split(",") if len(argv) > 1 else list(CELLS))
+        return 0
     from lfbm5d_torch import preset_denoise_params, psnr, run_bm5d
     from lfbm5d_torch.kernels import _build
     from lfbm5d_torch.kernels.accumulate import (
@@ -387,20 +490,9 @@ def main() -> int:
         "accumulate_groups": accumulate_groups,
     }
     bm_path = ["self_distances_kernel", "cross_argmin_all_kernel"]
-
-    # the plain versions are the references: full-precision f32 everywhere
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
     sig = _sigma_channels(25.0, "opp", 3, "float32", dev)
-
-    def lf_on_card(a, h, w, noise_seed, synth_seed=0):
-        clean = synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2,
-                             seed=synth_seed)
-        noisy = add_noise_np(clean, 25.0, seed=noise_seed)
-        return (torch.as_tensor(noisy, dtype=torch.float32, device=dev),
-                torch.as_tensor(clean, dtype=torch.float32, device=dev))
 
     phase = "(a)"
     launches = {}  # kernel -> launches on the path it serves
@@ -455,15 +547,8 @@ def main() -> int:
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-
-        def flagship():
-            t0 = time.perf_counter()
-            out = run_bm5d(noisy_dev, params, engine="auto")
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
-
-        ((basic, final), dt), counts = drive("(d)", kernels, fused_path,
-                                             flagship)
+        ((basic, final), dt), counts = drive(
+            "(d)", kernels, fused_path, lambda: timed_run(noisy_dev, params))
         launches.update({n: counts[n] for n in fused_path})
         peak = torch.cuda.max_memory_allocated()
         if tuple(final.shape) != tuple(noisy_dev.shape) or not bool(
@@ -527,11 +612,6 @@ def main() -> int:
             max_abs_err=max(r[0] for r in checks),
             ms=sum(r[1] for r in checks), plain_ms=sum(r[2] for r in checks),
             bound_ms=sum(r[3] for r in checks), bound_by=checks[0][4])
-        run = checks[0][5]["run"]
-        sweep = {g: cuda_ms(lambda: run(fused_group_step_banked, grid=g))
-                 for g in (132, 66, 33)}
-        print("(e) banked HT at 17x17x128x128, ms by grid: "
-              + ", ".join(f"{g}: {t:.3f}" for g, t in sweep.items()))
         rows.update(two_kernel_checks(params, xm, sig, dev))
 
         phase = "(f)"
@@ -564,14 +644,8 @@ def main() -> int:
         print(f"(g) 17x17x512x512 RGB made in {time.perf_counter() - t0:.1f} "
               f"s (host)")
         torch.cuda.reset_peak_memory_stats()
-
-        def full_width():
-            t0 = time.perf_counter()
-            out = run_bm5d(big, params, engine="auto")
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
-
-        ((bb, fb), dt), _ = drive("(g)", kernels, banked_path, full_width)
+        ((bb, fb), dt), _ = drive("(g)", kernels, banked_path,
+                                  lambda: timed_run(big, params))
         peak = torch.cuda.max_memory_allocated()
         mpix = 17 * 17 * 512 * 512 / 1e6
         print(f"(g) 17x17x512x512 RGB matched (route banked): {dt:.4f} s/LF "
@@ -603,6 +677,28 @@ def main() -> int:
             if abs(d_ps) > PSNR_DELTA_MAX:
                 raise AssertionError(f"{preset} preset disagrees with the "
                                      f"f64 reference")
+
+        phase = "(i)"
+        noisy_dev, clean_dev = lf_on_card(9, 434, 625, 1)
+        mpix = 9 * 9 * 434 * 625 / 1e6
+        for preset, (p_min, s_max) in PRESET_MIN.items():
+            ph = preset_denoise_params(preset, 25.0)
+            torch.cuda.reset_peak_memory_stats()
+            ((b_i, f_i), dt), _ = drive(f"(i) {preset}", kernels, banked_path,
+                                        lambda: timed_run(noisy_dev, ph))
+            p_final = psnr(f_i, clean_dev)
+            print(f"(i) flagship 9x9x434x625 RGB {preset} (route banked): "
+                  f"{dt:.4f} s/LF = {mpix / dt:.3f} Mpix/s; PSNR basic "
+                  f"{psnr(b_i, clean_dev):.3f} / final {p_final:.3f} dB; "
+                  f"peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if not bool(torch.isfinite(f_i).all()) or p_final < p_min:
+                raise AssertionError(f"{preset} at the flagship: final PSNR "
+                                     f"{p_final:.3f} below {p_min}")
+            if dt > s_max:
+                raise AssertionError(f"{preset} at the flagship: {dt:.1f} "
+                                     f"s/LF over the {s_max} s ceiling")
+            del b_i, f_i
         bad = [n for n in sys.modules
                if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
         if bad:
@@ -642,4 +738,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

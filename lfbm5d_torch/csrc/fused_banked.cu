@@ -13,7 +13,8 @@
 // group (N*A*k^2 floats) and, for Wiener, the basic group's factors (as
 // many again); the passes stream over it, and only the transform tables and
 // the patch origins stay in shared memory. The angular grid side is at most
-// MAXG (items keep their values in registers), N at most 16, A at most 384.
+// MAXG = 19 (items keep their values in registers; 19x19 is the largest
+// square grid of at most 384 SAIs), N at most 16, A at most 384.
 //
 // What bounds it on this card: the workspace traffic. Every pass reads and
 // writes the group once, about 16 passes per (group, channel), so ~9 MB per
@@ -26,7 +27,7 @@
 
 namespace {
 
-constexpr int MAXG = 24;
+constexpr int MAXG = 19;
 constexpr int MAXA = 384;
 
 __global__ void __launch_bounds__(THREADS, 1) banked_kernel(Args p) {
@@ -38,15 +39,15 @@ __global__ void __launch_bounds__(THREADS, 1) banked_kernel(Args p) {
   run_groups<MAXG>(p, B, ps, M, oy, oy + ps);
 }
 
-}  // namespace
-
-extern "C" {
-
 // Dynamic shared memory the banked kernel needs, in bytes.
-int lfbm5d_banked_smem_bytes(int n, int a, int a_h, int a_w) {
+int banked_smem_bytes(int n, int a, int a_h, int a_w) {
   const int msize = table_floats(n, stack_levels(n), a_h, a_w);
   return static_cast<int>(sizeof(float) * (msize + 2 * n * a));
 }
+
+}  // namespace
+
+extern "C" {
 
 // As lfbm5d_group_step, plus `group`: a [grid, k^2 * N * A] f32 workspace.
 int lfbm5d_group_step_banked(const void* noisy, const void* basic,
@@ -60,7 +61,7 @@ int lfbm5d_group_step_banked(const void* noisy, const void* basic,
                              float lambda, int grid, void* stream) {
   if (N > MAXN || aH > MAXG || aW > MAXG || A > MAXA || aH * aW != A)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lfbm5d_banked_smem_bytes(N, A, aH, aW);
+  const int smem = banked_smem_bytes(N, A, aH, aW);
   cudaError_t err = cudaFuncSetAttribute(
       banked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

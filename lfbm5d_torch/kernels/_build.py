@@ -30,7 +30,6 @@ _SIGNATURES = {
     "lfbm5d_cross_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "lfbm5d_group_smem_bytes": [_I, _I, _I, _I],
     "lfbm5d_group_step": [_P] * 12 + [_I] * 13 + [_F, _I, _P],
-    "lfbm5d_banked_smem_bytes": [_I, _I, _I, _I],
     "lfbm5d_group_step_banked": [_P] * 13 + [_I] * 13 + [_F, _I, _P],
     "lfbm5d_extract_groups": [_P] * 6 + [_I] * 10 + [_P],
     "lfbm5d_accumulate_groups": [_P] * 9 + [_I] * 10 + [_P],

@@ -11,9 +11,9 @@ memory, so it takes groups of at most 232,448 bytes (`group_smem_bytes`).
 
 `fused_group_step_banked` replaces lfbm5d_tpu/kernels/fused.py::
 fused_group_step_banked: the same function for groups beyond that (17x17
-grids, N=16 at 9x9; A <= 384), with the group in a per-block device-memory
-workspace. Both kernels share their passes (csrc/group_stage.cuh) and the
-plain version below.
+grids, N=16 at 9x9; A <= 384 and aH, aW <= 19), with the group in a
+per-block device-memory workspace. Both kernels share their passes
+(csrc/group_stage.cuh) and the plain version below.
 
 Contract (kernel and plain version alike), on the kernel's planar layout:
   noisy, basic   [C, A, Hp, Wp]   padded LF planes (basic: Wiener only)
@@ -49,7 +49,7 @@ from lfbm5d_torch.transforms.apply import GroupTransforms
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_N = 16  # stack depth the group kernels take
 MAX_SIDE = 16  # angular grid side of the shared-memory kernel
-MAX_SIDE_BANKED = 24  # angular grid side of the banked kernel
+MAX_SIDE_BANKED = 19  # angular grid side of the banked kernel
 MAX_A_BANKED = 384  # SAIs of the banked kernel (3 TPU banks of 128)
 _CHUNK = 256  # groups per gather in the plain version (memory bound only)
 
@@ -231,11 +231,10 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
 def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                             ref: int, sigma_c, tables: GroupTables, num, wden,
                             *, k: int, nd: int, lambda_3d: float,
-                            wiener: bool, use_sd: bool = False,
-                            grid: int | None = None) -> None:
+                            wiener: bool, use_sd: bool = False) -> None:
     """`fused_group_step` for groups beyond one block's shared memory (the
-    same contract and plain version). grid: blocks of the kernel, one per
-    SM by default (the fastest grid measured on an H100: PERF.md)."""
+    same contract and plain version). One block per SM: the fastest grid
+    measured on an H100 (PERF.md)."""
     if noisy.device.type == "cpu":
         return fused_group_step_plain(
             noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
@@ -255,8 +254,7 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
     if t == 0:
         return
     dev = noisy.device
-    grid = min(t, grid
-               or torch.cuda.get_device_properties(dev).multi_processor_count)
+    grid = min(t, torch.cuda.get_device_properties(dev).multi_processor_count)
     size = k * k * n_sim * a
     ws = torch.empty(((2 if wiener else 1) * grid, size), dtype=torch.float32,
                      device=dev)

@@ -17,7 +17,7 @@ The route is fixed once per step, from shapes and parameters alone
               N <= 16, aH, aW <= 16 and group_smem_bytes <= 232,448;
   banked      the same stage with the group in device memory
               (fused_group_step_banked): otherwise k = 8, no use_sd,
-              N <= 16, A <= 384 (aH, aW <= 24);
+              N <= 16, A <= 384, aH, aW <= 19;
   two_kernel  everything else, or fused=False: chunks of groups through
               extract_groups -> transforms/flat.py (torch matmuls) -> HT or
               Wiener shrink (ops/shrinkage.py) -> inverse ->

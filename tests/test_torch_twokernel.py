@@ -173,6 +173,8 @@ ROUTE_CASES = [
     ("default", 9, 9, {}, "banked"),
     ("robust", 9, 9, {}, "banked"),
     ("matched", 17, 17, {}, "banked"),
+    ("matched", 19, 19, {}, "banked"),
+    ("matched", 24, 16, {}, "two_kernel"),
     ("matched", 20, 20, {}, "two_kernel"),
     ("matched", 9, 9, dict(k=4), "two_kernel"),
     ("matched", 9, 9, dict(use_sd=True), "two_kernel"),
