@@ -7,7 +7,9 @@ Usage (from the repository root, one CUDA card):
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
-        the device's idle share and device time by kernel group
+        the device's idle share and device time by kernel group (cells
+        `flagship-dma`: the flagship with doff_mode="dma"; `sr-flagship`:
+        the x2 SR of phase (l))
 
 Phases; any failure exits non-zero without the final "ok" line:
   (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a);
@@ -45,7 +47,27 @@ Phases; any failure exits non-zero without the final "ok" line:
       engine="auto" (route "banked"): s/LF, Mpix/s, PSNR and peak memory;
       final PSNR >= the reference's record less 0.05 dB (default 28.416,
       robust 28.552) and s/LF under a ceiling that keeps the script inside
-      its time limit.
+      its time limit;
+  (j) gather_rows vs its plain version at the flagship's shapes: the
+      [V0*V1, 81] int32 table of reference SAI 0's argmin maps, gathered at
+      its T*N slots; exactly equal; kernel, plain and index_select times
+      with a cold L2;
+  (k) the flagship matched denoise with doff_mode "take" and "dma" (one
+      warm run, then one timed run each, then (d)'s "direct" again): final
+      PSNR within 0.01 dB of (d)'s and >= 28.37 dB; the "dma" run launches
+      gather_rows and the group kernel;
+  (l) x2 SR of the flagship: the clean 9x9x434x624 two-plane LF (synth
+      seed 0, disp 1/2) box-decimated to 9x9x217x312, run_sr with the
+      `matched` schedule (5 iterations, sigma 8 -> 1) on engine="auto": HR
+      PSNR >= 31.549 dB (the reference's record 31.599 less 0.05) and >=
+      bicubic + 1.5 dB; s/LF, HR Mpix/s, peak memory; a 3x3x32x40 SR on the
+      card within 0.05 dB of the float64 plain SR (engine="torch");
+  (m) the content router: select_preset on the flagship's noisy two-plane
+      LF (a CUDA tensor: the corner-SAI fetch) selects `matched`;
+      adaptive_denoise_params on the occl-grad family (bench.py's
+      definition, 9x9x434x625, noise seed 1) selects `robust`, and its one
+      timed run_bm5d reaches final PSNR >= 29.83 dB (the reference's record
+      29.88 less 0.05).
 Then the card's name and power limit, a {"kernels": [...]} line (launches
 from the path each kernel serves; ms and plain_ms at that path's shapes;
 bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
@@ -70,22 +92,34 @@ BM_MISMATCH_MAX = 1e-3
 GROUP_REL_MAX = 1e-4
 ACC_REL_MAX = 1e-5
 PSNR_DELTA_MAX = 0.05
+DOFF_PSNR_DELTA_MAX = 0.01  # (k): take/dma vs direct, final PSNR
+SR_PSNR_MIN = 31.549  # recorded 31.599 dB (flagship x2 SR, matched) less 0.05
+SR_OVER_BICUBIC_MIN = 1.5  # dB; bicubic recorded 29.853 dB
+ROUTED_PSNR_MIN = 29.83  # recorded 29.88 dB (occl-grad, routed) less 0.05
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 
-# name -> (angular side, H, W, noise seed, preset, fused) of the synthetic
-# two-plane LF (synth seed 0, disp 1/2, sigma 25, RGB) the phases run
+# name -> (angular side, H, W, noise seed, preset, fused, doff_mode) of the
+# synthetic two-plane LF (synth seed 0, disp 1/2, sigma 25, RGB) the phases
+# run; noise seed None: x2 SR of the clean LF box-decimated by 2
 CELLS = {
-    "flagship": (9, 434, 625, 1, "matched", None),
-    "17-banked": (17, 128, 128, 100, "matched", None),
-    "17-two-kernel": (17, 128, 128, 100, "matched", False),
-    "17-512": (17, 512, 512, 100, "matched", None),
-    "17-512-two-kernel": (17, 512, 512, 100, "matched", False),
-    "flagship-default": (9, 434, 625, 1, "default", None),
-    "flagship-robust": (9, 434, 625, 1, "robust", None),
+    "flagship": (9, 434, 625, 1, "matched", None, "direct"),
+    "17-banked": (17, 128, 128, 100, "matched", None, "direct"),
+    "17-two-kernel": (17, 128, 128, 100, "matched", False, "direct"),
+    "17-512": (17, 512, 512, 100, "matched", None, "direct"),
+    "17-512-two-kernel": (17, 512, 512, 100, "matched", False, "direct"),
+    "flagship-default": (9, 434, 625, 1, "default", None, "direct"),
+    "flagship-robust": (9, 434, 625, 1, "robust", None, "direct"),
+    "flagship-dma": (9, 434, 625, 1, "matched", None, "dma"),
+    "sr-flagship": (9, 434, 624, None, "matched", None, "direct"),
 }
+# occl-grad: bench.py's weak-texture family (3 occluding planes, a 0.7
+# texture-contrast ramp), the content the router sends to `robust`
+OCCL_GRAD = dict(disps=(0.5, 1.5, 3.0), seed=0, blob_frac=0.3,
+                 texture_grad=0.7)
 # kernel-name fragment -> group of the profile, first match wins
 KERNEL_GROUPS = (
+    ("gather_rows", "row gather (gather.cu)"),
     ("banked_kernel", "group kernel, banked (fused_banked.cu)"),
     ("group_kernel", "group kernel (fused.cu)"),
     ("extract_kernel", "extract (twokernel.cu)"),
@@ -136,6 +170,26 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_cold(fn, reps: int = 5) -> float:
+    """Mean device time of fn with the L2 flushed before each launch (a
+    128 MB write between the timed intervals)."""
+    import torch
+
+    flush = torch.empty(1 << 25, dtype=torch.float32, device="cuda:0")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def lf_on_card(a, h, w, noise_seed):
     """(noisy, clean) f32 on the card: the two-plane LF of CELLS."""
     import torch
@@ -158,6 +212,36 @@ def timed_run(lf, params, **kw):
     out = run_bm5d(lf, params, **kw)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def sr_flagship(a, h, w):
+    """(lr, clean, SRParams): the clean two-plane LF on the card, box-
+    decimated x2, and the `matched` SR schedule over the matched preset."""
+    import torch
+
+    from lfbm5d_torch import SR_SCHEDULES, SRParams, preset_denoise_params
+    from lfbm5d_torch.lf import synthetic_lf
+    from lfbm5d_torch.lf.resize import downsample
+
+    clean = torch.as_tensor(
+        synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2, seed=0),
+        dtype=torch.float32, device="cuda:0")
+    dn = preset_denoise_params("matched", 25.0, chunk=128)
+    params = SRParams(scale=2, sigma_final=1.0, ht=dn.ht, wiener=dn.wiener,
+                      chunk=dn.chunk, **SR_SCHEDULES["matched"])
+    return downsample(clean, 2), clean, params
+
+
+def timed_sr(lr, params, **kw):
+    """run_sr ended by a synchronize: (hr, seconds)."""
+    import torch
+
+    from lfbm5d_torch import run_sr
+
+    t0 = time.perf_counter()
+    hr = run_sr(lr, params, **kw)
+    torch.cuda.synchronize()
+    return hr, time.perf_counter() - t0
 
 
 def bound(nbytes: float, flops: float):
@@ -389,6 +473,163 @@ def two_kernel_checks(params, x, sigma_c, dev):
     return rows
 
 
+def phase_gather(params, noisy, m, sigma_c):
+    """(j): gather_rows vs plain at the flagship's shapes, on the table and
+    slot rows the `dma` mode builds for reference SAI 0; its kernels row."""
+    import torch
+
+    from lfbm5d_torch.kernels.gather import gather_rows, gather_rows_plain
+    from lfbm5d_torch.pipeline.denoise import _flat_pad
+    from lfbm5d_torch.pipeline.engine import build_kernel_step
+
+    sp = params.ht
+    x = noisy @ m.T
+    a_h, a_w, h, w, c = x.shape
+    step = build_kernel_step(sp, params.lambda_3d, a_h, a_w, h, w, c, False,
+                             "float32", str(x.device), None, "dma")
+    xp = _flat_pad(x, sp.pad)
+    pl = xp.permute(3, 0, 1, 2).contiguous()
+    r = step.refs[0]
+    sim_y, sim_x, _, _, bidx = step.block_match(
+        xp[..., 0].contiguous(), r, step.flat_mask(pl, sigma_c))
+    a, _, v1 = bidx.shape
+    table = bidx.view(a, -1).t().contiguous()  # [V0*V1, A]
+    rows = (sim_y * v1 + sim_x).view(-1)
+    out = gather_rows(table, rows)
+    exact = bool(torch.equal(out, gather_rows_plain(table, rows)))
+    same = bool(torch.equal(out.view(*sim_y.shape, a),
+                            step.slot_table(bidx, sim_y, sim_x)))
+    ms = cuda_ms_cold(lambda: gather_rows(table, rows))
+    pms = cuda_ms_cold(lambda: gather_rows_plain(table, rows))
+    rows_l = rows.long()  # index_select's index type, converted untimed
+    lib = cuda_ms_cold(lambda: table.index_select(0, rows_l))
+    warm = cuda_ms(lambda: gather_rows(table, rows))
+    # bytes the function must move: the indices, each distinct row of the
+    # table once, and the output
+    need = int(torch.unique(rows).numel()) * table.shape[1] * 4
+    bms, by = bound(nbytes(rows, out) + need, 0)
+    print(f"(j) gather_rows table {tuple(table.shape)} int32 "
+          f"({nbytes(table) / 1e6:.1f} MB), {rows.numel()} rows: exact "
+          f"{exact}, equal to the step's slot_table {same}; cold L2: kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, index_select {lib:.4f} ms; "
+          f"kernel warm {warm:.4f} ms; bound {bms:.4f} ms ({by})")
+    if not (exact and same):
+        raise AssertionError("gather_rows disagrees with its plain version")
+    return dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def phase_doff(kernels, path, params, noisy, clean, d_final, d_dt):
+    """(k): the flagship with doff_mode take and dma (and direct again);
+    gather_rows' launches on the dma run."""
+    from lfbm5d_torch import psnr
+
+    dma_launches = 0
+    for mode in ("take", "dma", "direct"):
+        timed_run(noisy, params, doff_mode=mode)
+        run_path = path + (["gather_rows"] if mode == "dma" else [])
+        ((_, final), dt), counts = drive(
+            f"(k) {mode}", kernels, run_path,
+            lambda: timed_run(noisy, params, doff_mode=mode))
+        p = psnr(final, clean)
+        print(f"(k) flagship matched doff_mode={mode}: {dt:.4f} s/LF "
+              f"((d) direct {d_dt:.4f}); final PSNR {p:.3f} dB ((d) "
+              f"{d_final:.3f})")
+        if mode == "dma":
+            dma_launches = counts["gather_rows"]
+        elif counts["gather_rows"]:
+            raise AssertionError(f"doff_mode={mode} launched gather_rows")
+        if abs(p - d_final) > DOFF_PSNR_DELTA_MAX or p < PSNR_FINAL_MIN:
+            raise AssertionError(f"doff_mode={mode}: final PSNR {p:.3f} vs "
+                                 f"(d) {d_final:.3f}")
+    return dma_launches
+
+
+def phase_sr(kernels, path):
+    """(l): x2 SR of the flagship, then a small SR against f64 plain."""
+    import torch
+
+    from lfbm5d_torch import psnr, run_sr
+    from lfbm5d_torch.lf.resize import upsample
+
+    lr, clean, sp = sr_flagship(9, 434, 624)
+    p_bic = psnr(upsample(lr, 2), clean)
+    warm = timed_sr(lr, sp)[1]
+    torch.cuda.reset_peak_memory_stats()
+    (hr, dt), _ = drive("(l)", kernels, path, lambda: timed_sr(lr, sp))
+    peak = torch.cuda.max_memory_allocated()
+    p_sr = psnr(hr, clean)
+    mpix = 9 * 9 * 434 * 624 / 1e6
+    print(f"(l) SR x2 9x9x217x312 -> 9x9x434x624 RGB ({sp.n_iter} "
+          f"iterations, sigma {sp.sigma_init} -> {sp.sigma_final}): warm run "
+          f"{warm:.3f} s, timed run {dt:.4f} s/LF = {mpix / dt:.3f} HR "
+          f"Mpix/s; PSNR bicubic {p_bic:.3f} / SR {p_sr:.3f} dB; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    if (tuple(hr.shape) != tuple(clean.shape)
+            or not bool(torch.isfinite(hr).all())):
+        raise AssertionError("SR output has the wrong shape or non-finite "
+                             "values")
+    if p_sr < SR_PSNR_MIN or p_sr < p_bic + SR_OVER_BICUBIC_MIN:
+        raise AssertionError(f"SR PSNR {p_sr:.3f} below the record or "
+                             f"bicubic {p_bic:.3f} + {SR_OVER_BICUBIC_MIN}")
+    del lr, clean, hr
+    lr_s, clean_s, _ = sr_flagship(3, 32, 40)
+    hr_k = run_sr(lr_s, sp, engine="auto")
+    hr_p = run_sr(lr_s, sp, dtype="float64", engine="torch")
+    d = psnr(hr_k, clean_s) - psnr(hr_p, clean_s)
+    print(f"(l) SR 3x3x16x20 -> 3x3x32x40: kernels (f32) "
+          f"{psnr(hr_k, clean_s):.3f} dB vs plain f64 "
+          f"{psnr(hr_p, clean_s):.3f} dB (delta {d:+.4f})")
+    if abs(d) > PSNR_DELTA_MAX:
+        raise AssertionError("small SR disagrees with the f64 reference")
+
+
+def phase_router(kernels, path, two_plane):
+    """(m): the router on the flagship two-plane LF and on occl-grad, and
+    the routed occl-grad denoise, timed once (probe included)."""
+    import torch
+
+    from lfbm5d_torch import adaptive_denoise_params, psnr, run_bm5d
+    from lfbm5d_torch import select_preset
+    from lfbm5d_torch.lf import add_noise_np, synthetic_lf_multi
+
+    name, stats = select_preset(two_plane, 25.0)
+    print(f"(m) two-plane flagship (CUDA tensor): {name}, weak_fraction "
+          f"{stats['weak_fraction']:.3f}")
+    if name != "matched":
+        raise AssertionError(f"the router sent the two-plane LF to {name}")
+    t0 = time.perf_counter()
+    clean_np = synthetic_lf_multi(9, 9, 434, 625, 3, **OCCL_GRAD)
+    noisy = torch.as_tensor(add_noise_np(clean_np, 25.0, seed=1),
+                            dtype=torch.float32, device="cuda:0")
+    clean = torch.as_tensor(clean_np, dtype=torch.float32, device="cuda:0")
+    print(f"(m) occl-grad 9x9x434x625 RGB made in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+
+    def routed():
+        t0 = time.perf_counter()
+        params, name, stats = adaptive_denoise_params(noisy, 25.0, chunk=128)
+        basic, final = run_bm5d(noisy, params)
+        torch.cuda.synchronize()
+        return name, stats, final, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    (name, stats, final, dt), _ = drive("(m) occl-grad", kernels, path,
+                                        routed)
+    p = psnr(final, clean)
+    mpix = 9 * 9 * 434 * 625 / 1e6
+    print(f"(m) occl-grad routed to {name} (weak_fraction "
+          f"{stats['weak_fraction']:.3f}): {dt:.4f} s/LF = {mpix / dt:.3f} "
+          f"Mpix/s, probe included; PSNR noisy {psnr(noisy, clean):.3f} / "
+          f"final {p:.3f} dB; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if name != "robust":
+        raise AssertionError(f"the router sent occl-grad to {name}")
+    if not bool(torch.isfinite(final).all()) or p < ROUTED_PSNR_MIN:
+        raise AssertionError(f"routed occl-grad: final PSNR {p:.3f} below "
+                             f"{ROUTED_PSNR_MIN}")
+
+
 def drive(label, kernels, path, fn):
     """Run one path with every launch count zeroed just before; the counts
     just after. Fails if a kernel of the path never launched."""
@@ -414,12 +655,22 @@ def profile(names) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name in names:
-        a, h, w, noise_seed, preset, fused = CELLS[name]
-        params = preset_denoise_params(preset, 25.0)
-        noisy = lf_on_card(a, h, w, noise_seed)[0]
-        timed_run(noisy, params, fused=fused)
+        a, h, w, noise_seed, preset, fused, mode = CELLS[name]
+        if noise_seed is None:
+            lr, _, sr_params = sr_flagship(a, h, w)
+
+            def run():
+                return timed_sr(lr, sr_params)[1]
+        else:
+            params = preset_denoise_params(preset, 25.0)
+            noisy = lf_on_card(a, h, w, noise_seed)[0]
+
+            def run():
+                return timed_run(noisy, params, fused=fused,
+                                 doff_mode=mode)[1]
+        run()
         with torch.profiler.profile(activities=acts) as prof:
-            wall = timed_run(noisy, params, fused=fused)[1]
+            wall = run()
         by_group, launches = {}, {}
         for ev in prof.key_averages():
             if (ev.self_device_time_total <= 0
@@ -430,13 +681,14 @@ def profile(names) -> None:
             by_group[g] = by_group.get(g, 0.0) + ev.self_device_time_total / 1e3
             launches[g] = launches.get(g, 0) + ev.count
         busy = sum(by_group.values())
-        print(f"cell {name} ({a}x{a}x{h}x{w} RGB, {preset}, fused={fused}): "
+        print(f"cell {name} ({a}x{a}x{h}x{w} RGB, {preset}, fused={fused}, "
+              f"doff_mode={mode}{', SR x2' if noise_seed is None else ''}): "
               f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
               f"share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
         for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
             print(f"  {g}: {ms:.2f} ms ({ms / busy:.1%}), {launches[g]} "
                   f"launches")
-        del noisy
+        del run
 
 
 def main(argv) -> int:
@@ -472,6 +724,7 @@ def main(argv) -> int:
     from lfbm5d_torch.kernels.fused import (
         fused_group_step, fused_group_step_banked, group_smem_bytes,
     )
+    from lfbm5d_torch.kernels.gather import gather_rows
     from lfbm5d_torch.lf import (
         add_noise_np, color_matrix, ind_initialize, synthetic_lf,
     )
@@ -488,6 +741,7 @@ def main(argv) -> int:
         "extract_groups": extract_groups,
         "accumulate_groups_fused": accumulate_groups_fused,
         "accumulate_groups": accumulate_groups,
+        "gather_rows": gather_rows,
     }
     bm_path = ["self_distances_kernel", "cross_argmin_all_kernel"]
     dev = torch.device("cuda:0")
@@ -566,6 +820,7 @@ def main(argv) -> int:
         if p_final < PSNR_FINAL_MIN or p_basic < PSNR_BASIC_MIN:
             raise AssertionError(f"flagship PSNR below the record: basic "
                                  f"{p_basic:.3f}, final {p_final:.3f}")
+        d_final, d_dt = p_final, dt
         del noisy_dev, clean_dev, x, xp, ctx, pilot, basic, final
 
         tiny = add_noise_np(synthetic_lf(3, 3, 32, 40, channels=3, seed=8),
@@ -699,6 +954,21 @@ def main(argv) -> int:
                 raise AssertionError(f"{preset} at the flagship: {dt:.1f} "
                                      f"s/LF over the {s_max} s ceiling")
             del b_i, f_i
+
+        phase = "(j)"
+        rows["gather_rows"] = phase_gather(params, noisy_dev, m, sig)
+
+        phase = "(k)"
+        launches["gather_rows"] = phase_doff(kernels, fused_path, params,
+                                             noisy_dev, clean_dev, d_final,
+                                             d_dt)
+
+        phase = "(l)"
+        phase_sr(kernels, fused_path)
+
+        phase = "(m)"
+        phase_router(kernels, banked_path, noisy_dev)
+        del noisy_dev, clean_dev
         bad = [n for n in sys.modules
                if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
         if bad:
@@ -723,6 +993,8 @@ def main(argv) -> int:
                                     "lfbm5d_tpu/kernels/accumulate.py:106"),
         "accumulate_groups": ("lfbm5d_torch/csrc/twokernel.cu",
                               "lfbm5d_tpu/kernels/accumulate.py:185"),
+        "gather_rows": ("lfbm5d_torch/csrc/gather.cu",
+                        "lfbm5d_tpu/kernels/gather.py:196"),
     }
     out = []
     for name, (src, rep) in replaces.items():

@@ -9,10 +9,18 @@ its own copies of the reference's numpy-only modules (`config`, `lf.color`,
 from lfbm5d_torch.config import (  # noqa: F401
     DenoiseParams,
     PRESETS,
+    SR_SCHEDULES,
+    SRParams,
     StepParams,
     preset_denoise_params,
 )
 from lfbm5d_torch.lf.metrics import psnr  # noqa: F401
+from lfbm5d_torch.models import LFDenoiser, LFSuperResolver  # noqa: F401
+from lfbm5d_torch.pipeline.adaptive import (  # noqa: F401
+    adaptive_denoise_params,
+    select_preset,
+)
 from lfbm5d_torch.pipeline.denoise import run_bm5d  # noqa: F401
+from lfbm5d_torch.pipeline.sr import run_sr  # noqa: F401
 
 __version__ = "0.1.0"

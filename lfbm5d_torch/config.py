@@ -221,10 +221,43 @@ def preset_denoise_params(name: str, sigma: float, **kw) -> DenoiseParams:
     )
 
 
+@dataclass(frozen=True)
+class SRParams:
+    """Super-resolution mode (ICIP18): bicubic init + [filter, back-project] loop.
+
+    sigma_init/sigma_final define the decreasing sigma schedule over n_iter
+    iterations (linear in sigma, SURVEY.md §2.10 SR paragraph).
+    """
+
+    scale: int = 2
+    n_iter: int = 10
+    sigma_init: float = 12.0
+    sigma_final: float = 1.0
+    color_space: str = "opp"
+    lambda_3d: float = 2.7
+    ht: StepParams = dataclasses.field(default_factory=default_ht_params)
+    wiener: StepParams = dataclasses.field(default_factory=default_wiener_params)
+    # Back-projection gain.
+    bp_gain: float = 1.0
+    # Gaussian pre-blur std of the decimation model (0 = plain box average;
+    # >0 = anti-aliased blur+decimate, the classical IBP model).
+    decimation_blur: float = 0.0
+    chunk: int = 256
+
+    def replace(self, **kw) -> "SRParams":
+        return dataclasses.replace(self, **kw)
+
+
 def from_reference(params):
-    """The port's StepParams or DenoiseParams with the fields of `params`,
-    any object carrying the reference dataclass's fields (e.g. a
+    """The port's StepParams, DenoiseParams or SRParams with the fields of
+    `params`, any object carrying the reference dataclass's fields (e.g. a
     `lfbm5d_tpu.config` instance)."""
+    if hasattr(params, "scale"):
+        kw = {f.name: getattr(params, f.name)
+              for f in dataclasses.fields(SRParams)}
+        kw["ht"] = from_reference(params.ht)
+        kw["wiener"] = from_reference(params.wiener)
+        return SRParams(**kw)
     if hasattr(params, "ht"):
         kw = {f.name: getattr(params, f.name)
               for f in dataclasses.fields(DenoiseParams)}

@@ -11,6 +11,8 @@
 //   prologue  sample_doff folded in: the origin of every live patch (slot n,
 //             SAI a) is sim + displacement(bidx[a, sim_y, sim_x]), with the
 //             reference SAI's own patch undisplaced; read once per group.
+//             Given a per-slot table doff [T, N, A] (the step's `take` and
+//             `dma` modes), the displacement is doff[t, n, a] instead.
 //   extract   gather the ns*A patches (ns = 2**lvl live slots) into shared
 //             memory B, laid out [pixel][slot*A + SAI] with an odd column
 //             stride so every pass below is free of bank conflicts.
@@ -67,20 +69,22 @@ int lfbm5d_group_smem_bytes(int n, int a, int a_h, int a_w) {
                           (KK * ((n * a) | 1) + msize + 2 * n * a));
 }
 
+// doff: [T, N, A] per-slot displacement indices, or null to read them from
+// bidx (the step's `direct` mode).
 int lfbm5d_group_step(const void* noisy, const void* basic, const void* bidx,
-                      const void* sim_y, const void* sim_x, const void* lvl,
-                      const void* mask, const void* sigma, const void* mats,
-                      void* num, void* wden, void* work, int T, int N, int A,
-                      int aH, int aW, int C, int Hp, int Wp, int V0, int V1,
-                      int nd, int ref, int wiener, float lambda, int grid,
-                      void* stream) {
+                      const void* doff, const void* sim_y, const void* sim_x,
+                      const void* lvl, const void* mask, const void* sigma,
+                      const void* mats, void* num, void* wden, void* work,
+                      int T, int N, int A, int aH, int aW, int C, int Hp,
+                      int Wp, int V0, int V1, int nd, int ref, int wiener,
+                      float lambda, int grid, void* stream) {
   if (N > MAXN || aH > MAXG || aW > MAXG || aH * aW != A)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = lfbm5d_group_smem_bytes(N, A, aH, aW);
   cudaError_t err = cudaFuncSetAttribute(
       group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args p = make_args(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
+  const Args p = make_args(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
                            sigma, mats, num, wden, work, nullptr, T, N, A,
                            aH, aW, C, Hp, Wp, V0, V1, nd, ref, wiener,
                            lambda);

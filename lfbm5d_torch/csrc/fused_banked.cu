@@ -49,23 +49,25 @@ int banked_smem_bytes(int n, int a, int a_h, int a_w) {
 
 extern "C" {
 
-// As lfbm5d_group_step, plus `group`: a [grid, k^2 * N * A] f32 workspace.
+// As lfbm5d_group_step (doff included), plus `group`: a [grid, k^2 * N * A]
+// f32 workspace.
 int lfbm5d_group_step_banked(const void* noisy, const void* basic,
-                             const void* bidx, const void* sim_y,
-                             const void* sim_x, const void* lvl,
-                             const void* mask, const void* sigma,
-                             const void* mats, void* num, void* wden,
-                             void* work, void* group, int T, int N, int A,
-                             int aH, int aW, int C, int Hp, int Wp, int V0,
-                             int V1, int nd, int ref, int wiener,
-                             float lambda, int grid, void* stream) {
+                             const void* bidx, const void* doff,
+                             const void* sim_y, const void* sim_x,
+                             const void* lvl, const void* mask,
+                             const void* sigma, const void* mats, void* num,
+                             void* wden, void* work, void* group, int T,
+                             int N, int A, int aH, int aW, int C, int Hp,
+                             int Wp, int V0, int V1, int nd, int ref,
+                             int wiener, float lambda, int grid,
+                             void* stream) {
   if (N > MAXN || aH > MAXG || aW > MAXG || A > MAXA || aH * aW != A)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = banked_smem_bytes(N, A, aH, aW);
   cudaError_t err = cudaFuncSetAttribute(
       banked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args p = make_args(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
+  const Args p = make_args(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
                            sigma, mats, num, wden, work, group, T, N, A, aH,
                            aW, C, Hp, Wp, V0, V1, nd, ref, wiener, lambda);
   banked_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(

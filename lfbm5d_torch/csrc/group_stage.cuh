@@ -27,6 +27,7 @@ struct Args {
   const float* noisy;    // [C, A, Hp, Wp]
   const float* basic;    // [C, A, Hp, Wp] (Wiener) or null
   const int* bidx;       // [A, V0, V1]
+  const int* doff;       // [T, N, A] per-slot displacements, or null: bidx
   const int* sim_y;      // [T, N]
   const int* sim_x;      // [T, N]
   const int* lvl;        // [T]
@@ -174,7 +175,8 @@ __device__ void run_groups(const Args& p, float* B, int ps, float* M,
       const int n = it / p.A, a = it % p.A;
       const int sy = p.sim_y[t * p.N + n], sx = p.sim_x[t * p.N + n];
       const int d = a == p.ref ? c_ang
-                               : p.bidx[((size_t)a * p.V0 + sy) * p.V1 + sx];
+                    : p.doff ? p.doff[((size_t)t * p.N + n) * p.A + a]
+                             : p.bidx[((size_t)a * p.V0 + sy) * p.V1 + sx];
       oy[it] = sy + d / nsel - p.nd;
       ox[it] = sx + d % nsel - p.nd;
     }
@@ -288,16 +290,17 @@ __device__ void run_groups(const Args& p, float* B, int ps, float* M,
 
 // Fills the Args shared by both launchers.
 inline Args make_args(const void* noisy, const void* basic, const void* bidx,
-                      const void* sim_y, const void* sim_x, const void* lvl,
-                      const void* mask, const void* sigma, const void* mats,
-                      void* num, void* wden, void* work, void* group, int T,
-                      int N, int A, int aH, int aW, int C, int Hp, int Wp,
-                      int V0, int V1, int nd, int ref, int wiener,
-                      float lambda) {
+                      const void* doff, const void* sim_y, const void* sim_x,
+                      const void* lvl, const void* mask, const void* sigma,
+                      const void* mats, void* num, void* wden, void* work,
+                      void* group, int T, int N, int A, int aH, int aW, int C,
+                      int Hp, int Wp, int V0, int V1, int nd, int ref,
+                      int wiener, float lambda) {
   Args p;
   p.noisy = static_cast<const float*>(noisy);
   p.basic = static_cast<const float*>(basic);
   p.bidx = static_cast<const int*>(bidx);
+  p.doff = static_cast<const int*>(doff);
   p.sim_y = static_cast<const int*>(sim_y);
   p.sim_x = static_cast<const int*>(sim_x);
   p.lvl = static_cast<const int*>(lvl);

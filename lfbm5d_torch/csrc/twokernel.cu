@@ -7,7 +7,8 @@
 //     out[p, g, n, pix, a] = plane[p, a, sy + dy(a) + pix / k,
 //                                        sx + dx(a) + pix % k]
 //   with (dy, dx) the displacement of bidx[a, sy, sx] (the reference SAI's
-//   own patch undisplaced: kernels/gather.py::sample_doff folded in). SAIs
+//   own patch undisplaced: kernels/gather.py::sample_doff folded in), or of
+//   doff[slot, a] where the step hands a per-slot table over. SAIs
 //   go in tiles of 32 through shared memory, so the reads walk patch rows
 //   and the writes walk the A axis. Masked slots are written as zeros. A
 //   pure copy: bit-equal to its plain version.
@@ -37,6 +38,7 @@ constexpr int TSTRIDE = ATILE + 1;
 
 struct Geo {
   const int* bidx;       // [A, V0, V1]
+  const int* doff;       // [S, A] per-slot displacements, or null: bidx
   const int* sim_y;      // [S]
   const int* sim_x;      // [S]
   const uint8_t* mask;   // [S]
@@ -49,6 +51,7 @@ __device__ __forceinline__ size_t patch_at(const Geo& g, int s, int a,
   const int nsel = 2 * g.nd + 1;
   const int sy = g.sim_y[s], sx = g.sim_x[s];
   const int d = a == g.ref ? g.nd * nsel + g.nd
+                : g.doff   ? g.doff[(size_t)s * g.A + a]
                            : g.bidx[((size_t)a * g.V0 + sy) * g.V1 + sx];
   const int y = sy + d / nsel - g.nd + pix / g.k;
   const int x = sx + d % nsel - g.nd + pix % g.k;
@@ -114,11 +117,12 @@ accumulate_kernel(const float* __restrict__ vals,
   }
 }
 
-Geo make_geo(const void* bidx, const void* sim_y, const void* sim_x,
-             const void* mask, int S, int A, int Hp, int Wp, int V0, int V1,
-             int k, int nd, int ref) {
+Geo make_geo(const void* bidx, const void* doff, const void* sim_y,
+             const void* sim_x, const void* mask, int S, int A, int Hp,
+             int Wp, int V0, int V1, int k, int nd, int ref) {
   Geo g;
   g.bidx = static_cast<const int*>(bidx);
+  g.doff = static_cast<const int*>(doff);
   g.sim_y = static_cast<const int*>(sim_y);
   g.sim_x = static_cast<const int*>(sim_x);
   g.mask = static_cast<const uint8_t*>(mask);
@@ -138,15 +142,16 @@ Geo make_geo(const void* bidx, const void* sim_y, const void* sim_x,
 
 extern "C" {
 
-// planes [P, A, Hp, Wp] f32; bidx [A, V0, V1]; sim_y/sim_x [S] int32 and
-// mask [S] uint8 (S = G*N slots); out [P, S, k*k, A] f32.
+// planes [P, A, Hp, Wp] f32; bidx [A, V0, V1]; doff [S, A] int32 or null
+// (then displacements come from bidx); sim_y/sim_x [S] int32 and mask [S]
+// uint8 (S = G*N slots); out [P, S, k*k, A] f32.
 int lfbm5d_extract_groups(const void* planes, const void* bidx,
-                          const void* sim_y, const void* sim_x,
-                          const void* mask, void* out, int S, int P, int A,
-                          int Hp, int Wp, int V0, int V1, int k, int nd,
-                          int ref, void* stream) {
-  const Geo g =
-      make_geo(bidx, sim_y, sim_x, mask, S, A, Hp, Wp, V0, V1, k, nd, ref);
+                          const void* doff, const void* sim_y,
+                          const void* sim_x, const void* mask, void* out,
+                          int S, int P, int A, int Hp, int Wp, int V0, int V1,
+                          int k, int nd, int ref, void* stream) {
+  const Geo g = make_geo(bidx, doff, sim_y, sim_x, mask, S, A, Hp, Wp, V0,
+                         V1, k, nd, ref);
   const int smem = k * k * TSTRIDE * static_cast<int>(sizeof(float));
   extract_kernel<<<dim3(S, P), THREADS, smem,
                    static_cast<cudaStream_t>(stream)>>>(
@@ -158,12 +163,13 @@ int lfbm5d_extract_groups(const void* planes, const void* bidx,
 // num, den [P, A, Hp, Wp] f32 accumulated in place; den null: num only.
 int lfbm5d_accumulate_groups(const void* vals, const void* wv,
                              const void* kaiser, const void* bidx,
-                             const void* sim_y, const void* sim_x,
-                             const void* mask, void* num, void* den, int S,
-                             int P, int A, int Hp, int Wp, int V0, int V1,
-                             int k, int nd, int ref, void* stream) {
-  const Geo g =
-      make_geo(bidx, sim_y, sim_x, mask, S, A, Hp, Wp, V0, V1, k, nd, ref);
+                             const void* doff, const void* sim_y,
+                             const void* sim_x, const void* mask, void* num,
+                             void* den, int S, int P, int A, int Hp, int Wp,
+                             int V0, int V1, int k, int nd, int ref,
+                             void* stream) {
+  const Geo g = make_geo(bidx, doff, sim_y, sim_x, mask, S, A, Hp, Wp, V0,
+                         V1, k, nd, ref);
   const int smem = k * k * TSTRIDE * static_cast<int>(sizeof(float));
   const dim3 grid(S, P);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

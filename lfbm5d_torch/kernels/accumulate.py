@@ -8,7 +8,7 @@ per-lane placement mux). Contract, the inverse of `kernels.extract`:
   vals          [P, G, N, k*k, A]  weighted patch values (est * w * kaiser)
   wv            [P, G, N]          per-slot weights (fused form only)
   kaiser        [k*k]              the Kaiser window (fused form only)
-  bidx, sim_y, sim_x, mask, ref    as for extract_groups
+  bidx, sim_y, sim_x, mask, ref    as for extract_groups, and doff (optional)
   num [P, A, Hp, Wp] += vals at every patch pixel's plane position
   den [P, A, Hp, Wp] += wv * kaiser[pix] at the same positions (fused form)
 Both in place; masked slots add nothing. The den is direct, as the
@@ -35,10 +35,10 @@ def _scatter_plain(acc, src, yy, xx, a_i):
 
 
 def accumulate_groups_fused_plain(vals, wv, kaiser, bidx, sim_y, sim_x, mask,
-                                  ref: int, num, den, *, k: int,
-                                  nd: int) -> None:
+                                  ref: int, num, den, *, k: int, nd: int,
+                                  doff=None) -> None:
     """Plain torch version of the fused (num + den) form."""
-    yy, xx, a_i = patch_coords(bidx, sim_y, sim_x, ref, k, nd)
+    yy, xx, a_i = patch_coords(bidx, sim_y, sim_x, ref, k, nd, doff)
     m = mask[None, :, :, None, None]
     _scatter_plain(num, torch.where(m, vals, 0.0), yy, xx, a_i)
     dv = wv[..., None, None] * kaiser[:, None]  # [P, G, N, k*k, 1]
@@ -46,20 +46,20 @@ def accumulate_groups_fused_plain(vals, wv, kaiser, bidx, sim_y, sim_x, mask,
 
 
 def accumulate_groups_plain(vals, bidx, sim_y, sim_x, mask, ref: int, num,
-                            *, k: int, nd: int) -> None:
+                            *, k: int, nd: int, doff=None) -> None:
     """Plain torch version of the num-only form."""
-    yy, xx, a_i = patch_coords(bidx, sim_y, sim_x, ref, k, nd)
+    yy, xx, a_i = patch_coords(bidx, sim_y, sim_x, ref, k, nd, doff)
     _scatter_plain(num, torch.where(mask[None, :, :, None, None], vals, 0.0),
                    yy, xx, a_i)
 
 
 def _launch(vals, wv, kaiser, bidx, sim_y, sim_x, mask, ref, num, den, k,
-            nd, what):
+            nd, doff, what):
     dev = vals.device
     f32 = torch.float32
     require(vals, "vals", f32, 5)
     require(num, "num", f32, 4, dev)
-    check_geometry(num, bidx, sim_y, sim_x, mask, k, nd)
+    check_geometry(num, bidx, sim_y, sim_x, mask, k, nd, doff)
     p, a, hp, wp = num.shape
     g, n = sim_y.shape
     if vals.shape != (p, g, n, k * k, a):
@@ -77,7 +77,8 @@ def _launch(vals, wv, kaiser, bidx, sim_y, sim_x, mask, ref, num, den, k,
     rc = library().lfbm5d_accumulate_groups(
         vals.data_ptr(), None if den is None else wv.data_ptr(),
         None if den is None else kaiser.data_ptr(), bidx.data_ptr(),
-        sim_y.data_ptr(), sim_x.data_ptr(), mask.data_ptr(), num.data_ptr(),
+        None if doff is None else doff.data_ptr(), sim_y.data_ptr(),
+        sim_x.data_ptr(), mask.data_ptr(), num.data_ptr(),
         None if den is None else den.data_ptr(), g * n, p, a, hp, wp,
         hp - k + 1, wp - k + 1, k, nd, ref, stream_of(vals),
     )
@@ -86,30 +87,31 @@ def _launch(vals, wv, kaiser, bidx, sim_y, sim_x, mask, ref, num, den, k,
 
 
 def accumulate_groups_fused(vals, wv, kaiser, bidx, sim_y, sim_x, mask,
-                            ref: int, num, den, *, k: int, nd: int) -> None:
+                            ref: int, num, den, *, k: int, nd: int,
+                            doff=None) -> None:
     """num += vals and den += wv * kaiser at every patch pixel (contract in
     the module docstring). CPU tensors run the plain version; CUDA tensors
     launch the kernel."""
     if vals.device.type == "cpu":
         return accumulate_groups_fused_plain(
             vals, wv, kaiser, bidx, sim_y, sim_x, mask, ref, num, den, k=k,
-            nd=nd)
+            nd=nd, doff=doff)
     if den is None:
         raise ValueError("accumulate_groups_fused: den is required")
     if _launch(vals, wv, kaiser, bidx, sim_y, sim_x, mask, ref, num, den, k,
-               nd, "accumulate_groups_fused"):
+               nd, doff, "accumulate_groups_fused"):
         accumulate_groups_fused.launches += 1
 
 
 def accumulate_groups(vals, bidx, sim_y, sim_x, mask, ref: int, num, *,
-                      k: int, nd: int) -> None:
+                      k: int, nd: int, doff=None) -> None:
     """num += vals at every patch pixel (the num-only form). CPU tensors run
     the plain version; CUDA tensors launch the kernel."""
     if vals.device.type == "cpu":
         return accumulate_groups_plain(vals, bidx, sim_y, sim_x, mask, ref,
-                                       num, k=k, nd=nd)
+                                       num, k=k, nd=nd, doff=doff)
     if _launch(vals, None, None, bidx, sim_y, sim_x, mask, ref, num, None, k,
-               nd, "accumulate_groups"):
+               nd, doff, "accumulate_groups"):
         accumulate_groups.launches += 1
 
 

@@ -7,15 +7,18 @@ mux; `kernels/gather.py::sample_doff` beforehand). Contract, on the port's
 planar layout:
   planes        [P, A, Hp, Wp]  padded LF planes (e.g. the C channels)
   bidx          [A, V0, V1]     disparity argmin maps of reference SAI `ref`
+  doff          [G, N, A]       optional int32 per-slot displacement
+                                indices (the step's `take`/`dma` modes)
   sim_y, sim_x  [G, N]          similar-patch positions (padded coords)
   mask          [G, N]          live slots
   returns       [P, G, N, k*k, A]
   out[p, g, n, pix, a] = planes[p, a, sim_y + dy + pix // k,
                                 sim_x + dx + pix % k]
-with (dy, dx) the displacement of bidx[a, sim_y, sim_x] (of the centre for
-a == ref); masked slots are zeros. A pure gather: the kernel is bit-equal to
-the plain version. What bounds it on the card: the bytes of the group tensor
-it writes (csrc/twokernel.cu header). `launches` counts kernel launches.
+with (dy, dx) the displacement of bidx[a, sim_y, sim_x], or of doff[g, n, a]
+when it is given (of the centre for a == ref); masked slots are zeros. A
+pure gather: the kernel is bit-equal to the plain version. What bounds it
+on the card: the bytes of the group tensor it writes (csrc/twokernel.cu
+header). `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,17 +26,17 @@ from __future__ import annotations
 import torch
 
 from lfbm5d_torch.kernels._build import check, library, require, stream_of
-from lfbm5d_torch.kernels.gather import sample_doff
+from lfbm5d_torch.kernels.gather import slot_doff
 from lfbm5d_torch.ops.distances import center_index, displacements
 
 
-def patch_coords(bidx, sim_y, sim_x, ref: int, k: int, nd: int):
+def patch_coords(bidx, sim_y, sim_x, ref: int, k: int, nd: int, doff=None):
     """Plane coordinates (y, x) [G, N, k*k, A] of every slot's patch pixels
     in every SAI, and the SAI index [1, 1, 1, A] to go with them."""
     dev = bidx.device
     disp = torch.as_tensor(displacements(nd), dtype=torch.long, device=dev)
-    off = disp[sample_doff(bidx, sim_y.long(), sim_x.long(), ref,
-                           center_index(nd)).long()]  # [G, N, A, 2]
+    off = disp[slot_doff(bidx, sim_y, sim_x, ref, center_index(nd),
+                         doff).long()]  # [G, N, A, 2]
     pix = torch.arange(k * k, device=dev)[:, None]
     yy = (sim_y.long()[..., None] + off[..., 0])[:, :, None, :] + pix // k
     xx = (sim_x.long()[..., None] + off[..., 1])[:, :, None, :] + pix % k
@@ -42,14 +45,15 @@ def patch_coords(bidx, sim_y, sim_x, ref: int, k: int, nd: int):
 
 
 def extract_groups_plain(planes, bidx, sim_y, sim_x, mask, ref: int, *,
-                         k: int, nd: int) -> torch.Tensor:
+                         k: int, nd: int, doff=None) -> torch.Tensor:
     """Plain torch version of the extract kernel (same contract)."""
-    yy, xx, a_i = patch_coords(bidx, sim_y, sim_x, ref, k, nd)
+    yy, xx, a_i = patch_coords(bidx, sim_y, sim_x, ref, k, nd, doff)
     out = planes[:, a_i, yy, xx]  # [P, G, N, k*k, A]
     return torch.where(mask[None, :, :, None, None], out, 0.0).contiguous()
 
 
-def check_geometry(planes, bidx, sim_y, sim_x, mask, k: int, nd: int):
+def check_geometry(planes, bidx, sim_y, sim_x, mask, k: int, nd: int,
+                   doff=None):
     dev = planes.device
     require(bidx, "bidx", torch.int32, 3, dev)
     require(sim_y, "sim_y", torch.int32, 2, dev)
@@ -64,17 +68,22 @@ def check_geometry(planes, bidx, sim_y, sim_x, mask, k: int, nd: int):
     if not 1 <= k <= 16 or nd < 0:
         raise ValueError(f"two-kernel path takes 1 <= k <= 16, nd >= 0; got "
                          f"k={k}, nd={nd}")
+    if doff is not None:
+        require(doff, "doff", torch.int32, 3, dev)
+        if doff.shape != (*sim_y.shape, a):
+            raise ValueError(f"doff {tuple(doff.shape)} vs slots "
+                             f"{tuple(sim_y.shape)} of {a} SAIs")
 
 
 def extract_groups(planes, bidx, sim_y, sim_x, mask, ref: int, *, k: int,
-                   nd: int) -> torch.Tensor:
+                   nd: int, doff=None) -> torch.Tensor:
     """Group tensor [P, G, N, k*k, A] (contract in the module docstring).
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     if planes.device.type == "cpu":
         return extract_groups_plain(planes, bidx, sim_y, sim_x, mask, ref,
-                                    k=k, nd=nd)
+                                    k=k, nd=nd, doff=doff)
     require(planes, "planes", torch.float32, 4)
-    check_geometry(planes, bidx, sim_y, sim_x, mask, k, nd)
+    check_geometry(planes, bidx, sim_y, sim_x, mask, k, nd, doff)
     p, a, hp, wp = planes.shape
     g, n = sim_y.shape
     out = torch.empty((p, g, n, k * k, a), dtype=planes.dtype,
@@ -82,7 +91,8 @@ def extract_groups(planes, bidx, sim_y, sim_x, mask, ref: int, *, k: int,
     if g == 0:
         return out
     rc = library().lfbm5d_extract_groups(
-        planes.data_ptr(), bidx.data_ptr(), sim_y.data_ptr(),
+        planes.data_ptr(), bidx.data_ptr(),
+        None if doff is None else doff.data_ptr(), sim_y.data_ptr(),
         sim_x.data_ptr(), mask.data_ptr(), out.data_ptr(), g * n, p, a, hp,
         wp, hp - k + 1, wp - k + 1, k, nd, ref, stream_of(planes),
     )

@@ -18,6 +18,10 @@ per-block device-memory workspace. Both kernels share their passes
 Contract (kernel and plain version alike), on the kernel's planar layout:
   noisy, basic   [C, A, Hp, Wp]   padded LF planes (basic: Wiener only)
   bidx           [A, V0, V1]      disparity argmin maps of this reference
+  doff           [T, N, A] int32  optional per-slot displacement indices
+                                  (the step's `take`/`dma` modes); None:
+                                  sampled from bidx (`direct`). The
+                                  reference SAI's lane is the centre in both.
   sim_y, sim_x   [T, N]           similar-patch positions (padded coords)
   lvl [T], mask [T, N]            stack level and live slots (flat groups and
                                   slots beyond 2**lvl are masked)
@@ -40,7 +44,7 @@ import torch
 
 from lfbm5d_torch.config import StepParams
 from lfbm5d_torch.kernels._build import check, library, require, stream_of
-from lfbm5d_torch.kernels.gather import sample_doff
+from lfbm5d_torch.kernels.gather import slot_doff
 from lfbm5d_torch.ops.distances import center_index, displacements
 from lfbm5d_torch.ops.shrinkage import filter_groups
 from lfbm5d_torch.transforms import matrices as tm
@@ -110,14 +114,15 @@ class GroupTables:
 def fused_group_step_plain(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                            ref: int, sigma_c, tables: GroupTables, num, wden,
                            *, k: int, nd: int, lambda_3d: float,
-                           wiener: bool, use_sd: bool = False) -> None:
+                           wiener: bool, use_sd: bool = False,
+                           doff=None) -> None:
     """Plain torch version of the group kernel (same contract, in place)."""
     c, a, _, _ = noisy.shape
     t, n_sim = sim_y.shape
     gt, a_h, a_w = tables.gt, tables.a_h, tables.a_w
     dev = noisy.device
     disp_ang = torch.as_tensor(displacements(nd), dtype=torch.long, device=dev)
-    ang = sample_doff(bidx, sim_y.long(), sim_x.long(), ref, center_index(nd))
+    ang = slot_doff(bidx, sim_y, sim_x, ref, center_index(nd), doff)
     ku = torch.arange(k, device=dev)[:, None]
     kv = torch.arange(k, device=dev)[None, :]
     a_b = torch.arange(a, device=dev)[None, None, :, None, None]
@@ -149,8 +154,8 @@ def fused_group_step_plain(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                        accumulate=True)
 
 
-def _check(noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables,
-           num, wden, k, wiener, use_sd, what):
+def _check(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c,
+           tables, num, wden, k, wiener, use_sd, what):
     """Raise unless the kernels take these tensors; (c, a, hp, wp, t, n)."""
     dev = noisy.device
     f32 = torch.float32
@@ -180,13 +185,18 @@ def _check(noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables,
             or num.shape != noisy.shape or wden.shape != noisy.shape
             or tables.a_h * tables.a_w != a):
         raise ValueError(f"{what}: inconsistent shapes")
+    if doff is not None:
+        require(doff, "doff", torch.int32, 3, dev)
+        if doff.shape != (t, n_sim, a):
+            raise ValueError(f"{what}: doff {tuple(doff.shape)} vs "
+                             f"{(t, n_sim, a)}")
     return c, a, hp, wp, t, n_sim
 
 
 def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
                      sigma_c, tables: GroupTables, num, wden, *, k: int,
                      nd: int, lambda_3d: float, wiener: bool,
-                     use_sd: bool = False) -> None:
+                     use_sd: bool = False, doff=None) -> None:
     """One reference SAI's group stage, accumulated into num/wden in place
     (contract in the module docstring). CPU tensors run the plain version;
     CUDA tensors launch the kernel."""
@@ -194,11 +204,11 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
         return fused_group_step_plain(
             noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
             num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
-            use_sd=use_sd,
+            use_sd=use_sd, doff=doff,
         )
     c, a, hp, wp, t, n_sim = _check(
-        noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables, num,
-        wden, k, wiener, use_sd, "group kernel")
+        noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c, tables,
+        num, wden, k, wiener, use_sd, "group kernel")
     a_h, a_w = tables.a_h, tables.a_w
     if n_sim > MAX_N or a_h > MAX_SIDE or a_w > MAX_SIDE:
         raise ValueError(f"group kernel takes N, aH, aW <= 16; got N={n_sim}, "
@@ -217,7 +227,8 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
                         device=dev) if wiener else None)
     rc = library().lfbm5d_group_step(
         noisy.data_ptr(), basic.data_ptr() if wiener else None,
-        bidx.data_ptr(), sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
+        bidx.data_ptr(), None if doff is None else doff.data_ptr(),
+        sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
         mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
         num.data_ptr(), wden.data_ptr(),
         work.data_ptr() if wiener else None, t, n_sim, a, a_h,
@@ -231,7 +242,8 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
 def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                             ref: int, sigma_c, tables: GroupTables, num, wden,
                             *, k: int, nd: int, lambda_3d: float,
-                            wiener: bool, use_sd: bool = False) -> None:
+                            wiener: bool, use_sd: bool = False,
+                            doff=None) -> None:
     """`fused_group_step` for groups beyond one block's shared memory (the
     same contract and plain version). One block per SM: the fastest grid
     measured on an H100 (PERF.md)."""
@@ -239,11 +251,11 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
         return fused_group_step_plain(
             noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
             num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
-            use_sd=use_sd,
+            use_sd=use_sd, doff=doff,
         )
     c, a, hp, wp, t, n_sim = _check(
-        noisy, basic, bidx, sim_y, sim_x, lvl, mask, sigma_c, tables, num,
-        wden, k, wiener, use_sd, "banked group kernel")
+        noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c, tables,
+        num, wden, k, wiener, use_sd, "banked group kernel")
     a_h, a_w = tables.a_h, tables.a_w
     if (n_sim > MAX_N or a_h > MAX_SIDE_BANKED or a_w > MAX_SIDE_BANKED
             or a > MAX_A_BANKED):
@@ -260,7 +272,8 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                      device=dev)
     rc = library().lfbm5d_group_step_banked(
         noisy.data_ptr(), basic.data_ptr() if wiener else None,
-        bidx.data_ptr(), sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
+        bidx.data_ptr(), None if doff is None else doff.data_ptr(),
+        sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
         mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
         num.data_ptr(), wden.data_ptr(),
         ws[grid:].data_ptr() if wiener else None, ws.data_ptr(), t, n_sim, a,

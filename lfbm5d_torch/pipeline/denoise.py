@@ -17,6 +17,10 @@ Engines (mirroring the reference's `_resolve_engine`):
   'torch' -> `_build_step` here, plain torch on any device.
 Only the reference's 'single' execution tier exists: its launched and banked
 tiers work around TPU faults.
+
+Every entry point runs on the CUDA card unless the caller passes
+device='cpu' (or a CPU tensor, whose device is taken); without a card a call
+that does not ask for the CPU raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from lfbm5d_torch.config import DenoiseParams, StepParams
+from lfbm5d_torch.device import resolve_device
 from lfbm5d_torch.lf.color import channel_sigma_scales, color_matrix
 from lfbm5d_torch.kernels.gather import sample_doff
 from lfbm5d_torch.lf.pad import ind_initialize, pad_lf, ref_sai_grid
@@ -129,14 +134,17 @@ def _build_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int, h: int,
 
 
 def _raw_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, wiener, dtype, engine,
-              device, fused=None):
+              device, fused=None, doff_mode="direct"):
     if engine == "auto":
         from lfbm5d_torch.pipeline.engine import build_kernel_step
 
         return build_kernel_step(sp, lambda_3d, a_h, a_w, h, w, c, wiener,
-                                 dtype, device, fused)
+                                 dtype, device, fused, doff_mode)
     if fused is not None:
         raise ValueError("fused selects a route of engine='auto'")
+    if doff_mode != "direct":
+        raise ValueError("doff_mode selects the disparity sampling of "
+                         "engine='auto'")
     if engine == "torch":
         return _build_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, wiener,
                            dtype, device)
@@ -188,9 +196,11 @@ def _sigma_channels(sigma: float, color_space: str, c: int, dtype: str,
 
 def ht_step(x, sigma: float, sp: StepParams, lambda_3d: float = 2.7,
             color_space: str = "rgb", chunk: int = 256,
-            dtype: str = "float32", engine: str = "torch", device="cpu"):
-    """HT step on an already-color-transformed LF [aH,aW,H,W,C] -> basic."""
-    x = torch.as_tensor(x, dtype=_dtype(dtype), device=device)
+            dtype: str = "float32", engine: str = "torch", device=None):
+    """HT step on an already-color-transformed LF [aH,aW,H,W,C] -> basic
+    (device None: x's device for a tensor, else the CUDA card)."""
+    x = torch.as_tensor(x, dtype=_dtype(dtype),
+                        device=resolve_device(device, x))
     a_h, a_w, h, w, c = x.shape
     fn = _raw_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, False, dtype,
                    engine, str(x.device))
@@ -203,10 +213,12 @@ def ht_step(x, sigma: float, sp: StepParams, lambda_3d: float = 2.7,
 
 def wiener_step(x, basic, sigma: float, sp: StepParams,
                 color_space: str = "rgb", chunk: int = 256,
-                dtype: str = "float32", engine: str = "torch", device="cpu"):
-    """Wiener step: BM on `basic`, shrinkage of `x` guided by `basic`."""
-    x = torch.as_tensor(x, dtype=_dtype(dtype), device=device)
-    basic = torch.as_tensor(basic, dtype=_dtype(dtype), device=device)
+                dtype: str = "float32", engine: str = "torch", device=None):
+    """Wiener step: BM on `basic`, shrinkage of `x` guided by `basic`
+    (device as for ht_step)."""
+    x = torch.as_tensor(x, dtype=_dtype(dtype),
+                        device=resolve_device(device, x))
+    basic = torch.as_tensor(basic, dtype=_dtype(dtype), device=x.device)
     a_h, a_w, h, w, c = x.shape
     fn = _raw_step(sp, 0.0, a_h, a_w, h, w, c, chunk, True, dtype, engine,
                    str(x.device))
@@ -222,15 +234,18 @@ def wiener_step(x, basic, sigma: float, sp: StepParams,
 @lru_cache(maxsize=None)
 def build_denoise_fn(params: DenoiseParams, a_h: int, a_w: int, h: int,
                      w: int, c: int, dtype: str = "float32",
-                     engine: str = "auto", device: str = "cpu",
-                     fused: bool | None = None):
+                     engine: str = "auto", device: str | None = None,
+                     fused: bool | None = None, doff_mode: str = "direct"):
     """The full per-LF pipeline (color -> HT -> Wiener -> inverse color) as
-    fn(lf, sigma_c) -> (basic, final) for one geometry and device."""
+    fn(lf, sigma_c) -> (basic, final) for one geometry and device (None: the
+    CUDA card)."""
     dt = _dtype(dtype)
+    device = resolve_device(device)
     ht_raw = _raw_step(params.ht, params.lambda_3d, a_h, a_w, h, w, c,
-                       params.chunk, False, dtype, engine, device, fused)
+                       params.chunk, False, dtype, engine, str(device), fused,
+                       doff_mode)
     wn_raw = _raw_step(params.wiener, 0.0, a_h, a_w, h, w, c, params.chunk,
-                       True, dtype, engine, device, fused)
+                       True, dtype, engine, str(device), fused, doff_mode)
     use_color = c == 3 and params.color_space != "rgb"
     if use_color:
         m = np.asarray(color_matrix(params.color_space))
@@ -261,25 +276,26 @@ def build_denoise_fn(params: DenoiseParams, a_h: int, a_w: int, h: int,
 
 def run_bm5d(noisy_lf, params: DenoiseParams, dtype: str = "float32",
              engine: str = "auto", device=None, sigma_c=None,
-             fused: bool | None = None):
+             fused: bool | None = None, doff_mode: str = "direct"):
     """Full two-step pipeline. noisy_lf: [aH,aW,H,W,C] RGB/gray in [0,255]
     (numpy array or tensor).
 
-    Returns (basic, final) tensors on `device` (default: the input tensor's
-    device, or the CPU for arrays) in the input color space. engine: 'auto'
-    (CUDA kernels for CUDA tensors, their plain versions on the CPU) or
-    'torch' (plain torch everywhere). sigma_c optionally overrides the
+    Returns (basic, final) tensors on `device` in the input color space.
+    device None: the input tensor's device, or the CUDA card for an array
+    (raises without one; pass device='cpu' to run on the host). engine:
+    'auto' (CUDA kernels for CUDA tensors, their plain versions on the CPU)
+    or 'torch' (plain torch everywhere). sigma_c optionally overrides the
     per-channel noise stds (tensor [C]); params.sigma is then ignored.
     fused picks the route of engine 'auto' (pipeline/engine.py): None by
     shape, True the fused family (raises where no group kernel takes the
-    shape), False the two-kernel path.
+    shape), False the two-kernel path. doff_mode picks its disparity
+    sampling: 'direct' (default), 'take' or 'dma' (pipeline/engine.py).
     """
-    if device is None:
-        device = noisy_lf.device if torch.is_tensor(noisy_lf) else "cpu"
-    lf = torch.as_tensor(noisy_lf, dtype=_dtype(dtype), device=device)
+    lf = torch.as_tensor(noisy_lf, dtype=_dtype(dtype),
+                         device=resolve_device(device, noisy_lf))
     a_h, a_w, h, w, c = lf.shape
     fn = build_denoise_fn(params, a_h, a_w, h, w, c, dtype, engine,
-                          str(lf.device), fused)
+                          str(lf.device), fused, doff_mode)
     if sigma_c is None:
         sigma_c = _sigma_channels(params.sigma, params.color_space, c, dtype,
                                   lf.device)

@@ -23,6 +23,20 @@ The route is fixed once per step, from shapes and parameters alone
               Wiener shrink (ops/shrinkage.py) -> inverse ->
               accumulate_groups_fused.
 
+The disparity sampling of the group stage follows `doff_mode`, as the
+reference's LFBM5D_DOFF_MODE does (passed here as an argument, so it is part
+of the builder's cache key):
+
+  direct      (default) the group kernels read bidx[a, sim_y, sim_x] in
+              their prologue;
+  take, dma   the [V0*V1, A] table bidx.view(A, -1).t() is gathered at rows
+              sim_y*V1 + sim_x of every slot into doff [T, N, A], which the
+              group stage reads instead: `take` by the plain gather
+              (index_select, the reference's jnp.take), `dma` by the
+              gather_rows kernel (kernels/gather.py).
+
+All three give the group stage the same integers, so the same num/den.
+
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors. The group stage works on planar [C, A, Hp, Wp]
 copies of the LF. The fused and banked routes accumulate the denominator
@@ -42,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from lfbm5d_torch.config import StepParams
+from lfbm5d_torch.device import resolve_device
 from lfbm5d_torch.kernels.accumulate import accumulate_groups_fused
 from lfbm5d_torch.kernels.bm import (
     cross_argmin_all_kernel,
@@ -55,6 +70,7 @@ from lfbm5d_torch.kernels.fused import (
     fused_group_step_banked,
     group_fits,
 )
+from lfbm5d_torch.kernels.gather import gather_rows, gather_rows_plain
 from lfbm5d_torch.lf.pad import ind_initialize, ref_sai_grid
 from lfbm5d_torch.ops.distances import displacements
 from lfbm5d_torch.ops.flat import flat_ref_mask
@@ -70,6 +86,7 @@ from lfbm5d_torch.transforms.flat import (
 # Bytes of one two-kernel chunk's group tensor (all channels of one plane
 # set); about eight such tensors are alive at once.
 TWO_KERNEL_CHUNK_BYTES = 1 << 29
+DOFF_MODES = ("direct", "take", "dma")
 
 
 def kaiser_conv(wden: torch.Tensor, k: int) -> torch.Tensor:
@@ -110,14 +127,19 @@ def resolve_route(sp: StepParams, a_h: int, a_w: int,
 @lru_cache(maxsize=None)
 def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
                       h: int, w: int, c: int, wiener: bool,
-                      dtype: str = "float32", device: str = "cpu",
-                      fused: bool | None = None):
+                      dtype: str = "float32", device: str | None = None,
+                      fused: bool | None = None, doff_mode: str = "direct"):
     """Returns fn(noisy_p, match_p, sigma_c, basic_p) -> (num, den), with
-    fn.route its route: 'fused', 'banked' or 'two_kernel'."""
+    fn.route its route: 'fused', 'banked' or 'two_kernel'. device None is
+    the CUDA card (raises without one)."""
     k, n, nd, n_sim, pad = sp.k, sp.n_search, sp.n_disp, sp.n_sim, sp.pad
     dt = {"float32": torch.float32, "float64": torch.float64}[dtype]
-    dev = torch.device(device)
+    if doff_mode not in DOFF_MODES:
+        raise ValueError(f"doff_mode must be one of {DOFF_MODES}, got "
+                         f"{doff_mode!r}")
+    dev = resolve_device(device)
     a = a_h * a_w
+    v1 = w + 2 * pad - k + 1  # argmin map width
     route = resolve_route(sp, a_h, a_w, fused)
     ys = ind_initialize(h, k, sp.p) + pad
     xs = ind_initialize(w, k, sp.p) + pad
@@ -151,6 +173,16 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
         bidx = cross_argmin_all_kernel(im, match0, k, nd)  # [A, V0, V1]
         return sim_y, sim_x, lvl, mask, bidx
 
+    def slot_table(bidx, sim_y, sim_x):
+        """doff [T, N, A] of the take and dma modes (None when direct):
+        rows sim_y*V1 + sim_x of the [V0*V1, A] transposed argmin maps."""
+        if doff_mode == "direct":
+            return None
+        table = bidx.view(a, -1).t().contiguous()
+        rows = (sim_y * v1 + sim_x).view(-1)
+        gather = gather_rows if doff_mode == "dma" else gather_rows_plain
+        return gather(table, rows).view(*sim_y.shape, a)
+
     if route == "two_kernel":
         ft = FlatTransforms.build(sp, a_h, a_w, dtype=dt, device=dev)
         kai = tables.kaiser.reshape(-1)
@@ -162,23 +194,24 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
             return x.view(c, g, n_sim, k, k, a_h, a_w).permute(
                 1, 2, 5, 6, 3, 4, 0)
 
-        def group_stage(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask,
-                        r, sigma_c, num, den):
+        def group_stage(noisy_pl, basic_pl, bidx, doff, sim_y, sim_x, lvl,
+                        mask, r, sigma_c, num, den):
             """Chunks of groups: extract -> flat transforms -> shrink ->
             inverse -> accumulate (direct den)."""
             t = sim_y.shape[0]
             for g0 in range(0, t, chunk):
                 sl = slice(g0, min(t, g0 + chunk))
                 sy, sx, mk, lv = sim_y[sl], sim_x[sl], mask[sl], lvl[sl]
+                dc = None if doff is None else doff[sl]
                 g = sy.shape[0]
                 lv_c = lv.long().repeat(c)  # rows ordered (channel, group)
                 grp = extract_groups(noisy_pl, bidx, sy, sx, mk, r, k=k,
-                                     nd=nd)
+                                     nd=nd, doff=dc)
                 spec = forward_flat(grp.view(c * g, n_sim, k * k, a), lv_c,
                                     ft)
                 if wiener:
                     grp_b = extract_groups(basic_pl, bidx, sy, sx, mk, r,
-                                           k=k, nd=nd)
+                                           k=k, nd=nd, doff=dc)
                     spec_b = forward_flat(
                         grp_b.view(c * g, n_sim, k * k, a), lv_c, ft)
                     filt, wgt = wiener_shrink(canon(spec, g),
@@ -194,16 +227,18 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
                 vals = est.view(c, g, n_sim, k * k, a) * (
                     wm[..., None, None] * kai[:, None])
                 accumulate_groups_fused(vals, wm.contiguous(), kai, bidx, sy,
-                                        sx, mk, r, num, den, k=k, nd=nd)
+                                        sx, mk, r, num, den, k=k, nd=nd,
+                                        doff=dc)
     else:
         group_fn = (fused_group_step if route == "fused"
                     else fused_group_step_banked)
 
-        def group_stage(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask,
-                        r, sigma_c, num, wden):
+        def group_stage(noisy_pl, basic_pl, bidx, doff, sim_y, sim_x, lvl,
+                        mask, r, sigma_c, num, wden):
             group_fn(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask, r,
                      sigma_c, tables, num, wden, k=k, nd=nd,
-                     lambda_3d=lambda_3d, wiener=wiener, use_sd=sp.use_sd)
+                     lambda_3d=lambda_3d, wiener=wiener, use_sd=sp.use_sd,
+                     doff=doff)
 
     def step(noisy_p, match_p, sigma_c, basic_p):
         match0 = match_p[..., 0].contiguous()  # [A, Hp, Wp]
@@ -214,8 +249,9 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
         den = torch.zeros_like(noisy_pl)
         for r in refs:
             sim_y, sim_x, lvl, mask, bidx = block_match(match0, r, fmask)
-            group_stage(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask, r,
-                        sigma_c, num, den)
+            doff = slot_table(bidx, sim_y, sim_x)
+            group_stage(noisy_pl, basic_pl, bidx, doff, sim_y, sim_x, lvl,
+                        mask, r, sigma_c, num, den)
         if route != "two_kernel":
             den = kaiser_conv(den, k)
         return num.permute(1, 2, 3, 0), den.permute(1, 2, 3, 0)
@@ -223,6 +259,7 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
     step.route = route
     step.flat_mask = flat_mask
     step.block_match = block_match
+    step.slot_table = slot_table
     step.tables = tables
     step.refs = refs
     return step

@@ -66,7 +66,7 @@ def test_step_num_den_match_reference(lf_pair, case, engine):
     xp, mp, sig, bp = _inputs(sp, noisy, basic, wiener)
     if engine == "kernel-step":
         step = build_kernel_step(tsp, lam, AH, AW, H, W, C, wiener,
-                                 "float64")
+                                 "float64", "cpu")
     else:
         step = tden._build_step(tsp, lam, AH, AW, H, W, C, 64, wiener,
                                 "float64")
@@ -125,7 +125,8 @@ def test_plain_group_step_accumulates_in_place(lf_pair):
     sp = from_reference(CASES["ht"][0])
     noisy, _ = lf_pair
     xp, mp, sig, _ = _inputs(sp, noisy, None, False)
-    step = build_kernel_step(sp, 2.7, AH, AW, H, W, C, False, "float64")
+    step = build_kernel_step(sp, 2.7, AH, AW, H, W, C, False, "float64",
+                             "cpu")
     noisy_pl = xp.permute(3, 0, 1, 2).contiguous()
     num = torch.zeros_like(noisy_pl)
     wden = torch.zeros_like(noisy_pl)

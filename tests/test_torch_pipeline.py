@@ -17,10 +17,16 @@ from lfbm5d_tpu.lf.noise import add_noise_np
 from lfbm5d_tpu.oracle import oracle_denoise
 from lfbm5d_tpu.pipeline import ht_step as j_ht_step
 from lfbm5d_tpu.pipeline import run_bm5d as j_run_bm5d
-from lfbm5d_torch import psnr
+from lfbm5d_torch import LFDenoiser, LFSuperResolver, psnr
 from lfbm5d_torch import run_bm5d as _run_bm5d
-from lfbm5d_torch.config import from_reference
-from lfbm5d_torch.pipeline import ht_step
+from lfbm5d_torch.config import SRParams, from_reference
+from lfbm5d_torch.pipeline import (
+    build_denoise_fn,
+    ht_step,
+    run_sr,
+    wiener_step,
+)
+from lfbm5d_torch.pipeline.engine import build_kernel_step
 
 torch.set_num_threads(2)
 
@@ -30,8 +36,9 @@ ENGINES = ["torch", "auto"]
 
 
 def run_bm5d(noisy, params, **kw):
-    """The port's run_bm5d on the port's copy of the reference params."""
-    return _run_bm5d(noisy, from_reference(params), **kw)
+    """The port's run_bm5d on the port's copy of the reference params, on
+    the CPU."""
+    return _run_bm5d(noisy, from_reference(params), device="cpu", **kw)
 
 
 def tiny_params(sigma=20.0):
@@ -126,7 +133,7 @@ def test_variants_match_jax_xla(variant):
 def test_ht_step_and_sigma_override(tiny_case):
     _, noisy, params, _ = tiny_case
     got = ht_step(noisy, 20.0, from_reference(params.ht), 2.7, "rgb", 32,
-                  dtype="float64")
+                  dtype="float64", device="cpu")
     want = np.asarray(j_ht_step(noisy, 20.0, params.ht, 2.7, "rgb", 32,
                                 dtype="float64"))
     assert np.abs(got.numpy() - want).max() < 1e-9
@@ -141,6 +148,48 @@ def test_unknown_engine_raises(tiny_case):
     _, noisy, params, _ = tiny_case
     with pytest.raises(ValueError, match="engine"):
         run_bm5d(noisy, params, engine="pallas")
+
+
+def test_run_bm5d_raises_without_cuda(tiny_case, monkeypatch):
+    """An array input runs on the CUDA card unless device='cpu' is asked
+    for: without a card the call raises instead of running on the host."""
+    _, noisy, params, _ = tiny_case
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _run_bm5d(noisy, from_reference(params))
+
+
+ENTRY_POINTS = {
+    "ht_step": lambda x, p: ht_step(x, 20.0, p.ht),
+    "wiener_step": lambda x, p: wiener_step(x, x, 20.0, p.wiener),
+    "build_denoise_fn": lambda x, p: build_denoise_fn(p, 2, 2, 20, 24, 1),
+    "build_kernel_step": lambda x, p: build_kernel_step(
+        p.ht, 2.7, 2, 2, 20, 24, 1, False),
+    "run_sr": lambda x, p: run_sr(x, SRParams(ht=p.ht, wiener=p.wiener)),
+    "LFDenoiser": lambda x, p: LFDenoiser(p)(x),
+    "LFSuperResolver": lambda x, p: LFSuperResolver(
+        SRParams(ht=p.ht, wiener=p.wiener))(x),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_raise_without_cuda(tiny_case, monkeypatch, entry):
+    """Every entry point resolves device=None to the card for an array
+    (or for no input at all) and raises without one."""
+    _, noisy, params, _ = tiny_case
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[entry](noisy, from_reference(params))
+
+
+def test_tensor_input_keeps_its_device(tiny_case):
+    """device=None takes a tensor's own device (here the CPU)."""
+    _, noisy, params, _ = tiny_case
+    x = torch.as_tensor(noisy)
+    b, f = _run_bm5d(x, from_reference(params), dtype="float64")
+    want = run_bm5d(noisy, params, dtype="float64")
+    assert f.device.type == "cpu" and torch.equal(f, want[1])
+    assert torch.equal(b, want[0])
 
 
 def test_import_and_run_without_jax():
@@ -158,7 +207,7 @@ def test_import_and_run_without_jax():
         "                  wiener=StepParams(tau_match=400.0, **sp))\n"
         "x = add_noise_np(synthetic_lf(2, 2, 16, 16, channels=3, seed=0),\n"
         "                 20.0, seed=1)\n"
-        "b, f = lfbm5d_torch.run_bm5d(x, p)\n"
+        "b, f = lfbm5d_torch.run_bm5d(x, p, device='cpu')\n"
         "assert f.shape == x.shape and bool(torch.isfinite(f).all())\n"
         "bad = [m for m in sys.modules\n"
         "       if m.startswith('jax') or m.startswith('lfbm5d_tpu')]\n"

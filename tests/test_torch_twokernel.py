@@ -186,7 +186,8 @@ ROUTE_CASES = [
 def test_routes(preset, a_h, a_w, over, route):
     sp = tcfg.preset_step_params(preset, 2500.0, **over)
     assert resolve_route(sp, a_h, a_w) == route
-    step = build_kernel_step(sp, 2.7, a_h, a_w, 24, 24, 1, False)
+    step = build_kernel_step(sp, 2.7, a_h, a_w, 24, 24, 1, False, "float32",
+                             "cpu")
     assert step.route == route
     assert resolve_route(sp, a_h, a_w, fused=False) == "two_kernel"
     if route == "two_kernel":
@@ -262,7 +263,7 @@ def test_step_num_den_match_reference(step_ref, case, fused):
     a_h, h, over, wiener, _ = STEP_CASES[case]
     sp, lam, inputs, jnum, jden_ = step_ref(case)
     step = build_kernel_step(from_reference(sp), lam, a_h, a_h, h, h, 1,
-                             wiener, "float64", fused=fused)
+                             wiener, "float64", "cpu", fused=fused)
     want_route = "two_kernel" if (fused is False or over["k"] != 8
                                   or over.get("use_sd")) else "banked"
     assert step.route == want_route
@@ -281,7 +282,7 @@ def test_two_kernel_chunks_do_not_change_the_step(monkeypatch):
     xp = tden._flat_pad(torch.as_tensor(add_noise_np(clean, 20.0, seed=4)),
                         sp.pad)
     sig = tden._sigma_channels(20.0, "rgb", 2, "float64")
-    args = (sp, 2.7, 3, 3, 20, 20, 2, False, "float64")
+    args = (sp, 2.7, 3, 3, 20, 20, 2, False, "float64", "cpu")
     num0, den0 = build_kernel_step(*args, fused=False)(xp, xp, sig, None)
     group = 2 * 4 * 16 * 9 * 8  # bytes of one group of both channels
     monkeypatch.setattr(engine, "TWO_KERNEL_CHUNK_BYTES", 3 * group)
@@ -302,7 +303,7 @@ def test_matched_17x17_rgb_matches_jax_xla():
     noisy = add_noise_np(clean, 25.0, seed=100)
     jb, jf = j_run_bm5d(noisy, params, dtype="float64", engine="xla")
     tb, tf = run_bm5d(noisy, from_reference(params), dtype="float64",
-                      engine="auto")
+                      engine="auto", device="cpu")
     assert np.abs(tb.numpy() - np.asarray(jb)).max() < 1e-9
     assert np.abs(tf.numpy() - np.asarray(jf)).max() < 1e-9
 
@@ -311,9 +312,10 @@ def test_fused_selects_routes_only_on_auto():
     params = tcfg.DenoiseParams()
     x = np.zeros((2, 2, 8, 8, 1))
     with pytest.raises(ValueError, match="fused"):
-        run_bm5d(x, params, engine="torch", fused=False)
+        run_bm5d(x, params, engine="torch", device="cpu", fused=False)
     with pytest.raises(ValueError, match="fused=True"):
-        run_bm5d(x, params.replace(ht=params.ht.replace(k=4)), fused=True)
+        run_bm5d(x, params.replace(ht=params.ht.replace(k=4)),
+                 device="cpu", fused=True)
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
