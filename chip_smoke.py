@@ -4,6 +4,9 @@
 Usage (from the repository root, one CUDA card):
 
     python chip_smoke.py                    the phases below
+    python chip_smoke.py --ab PARENT        the group kernels of a parent
+        checkout (PARENT, its lfbm5d_torch/csrc built apart) against this
+        tree's, in turns, at rows 4 and 5's shapes (see `ab`)
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
@@ -12,14 +15,19 @@ Usage (from the repository root, one CUDA card):
         the x2 SR of phase (l))
 
 Phases; any failure exits non-zero without the final "ok" line:
-  (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a);
+  (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a):
+      ptxas registers and spill per kernel; the launch plan of every
+      group-kernel shape the phases launch (cluster size, threads, shared
+      bytes per CTA, max active clusters, CTAs per SM), the Python copy
+      (kernels/fused.py::group_plan) equal to the library's;
   (b) block-matching kernels vs their plain versions at one reference SAI of
       the flagship (9x9x434x625 RGB, matched preset): mismatch fraction
       <= 1e-3 and |distance delta| <= 1 quantum;
   (c) group kernel vs its plain version on the same BM outputs, HT and
       Wiener, at 9x9x64x96 RGB and at one flagship reference: num and the
       deferred den within 1e-4 relative (L2 norm; f32 atomics order, and an
-      HT coefficient within rounding of its threshold may flip);
+      HT coefficient within rounding of its threshold may flip); each
+      group check prints its launch plan (as in (a));
   (d) the flagship two-step denoise through run_bm5d(engine="auto") (route
       "fused"): one warm run, then a timed run whose kernel launch counts
       must all be > 0, with final PSNR >= 28.37 dB and basic >= 27.64 dB; a
@@ -28,7 +36,8 @@ Phases; any failure exits non-zero without the final "ok" line:
   (e) the kernels of the 17x17 and N=16 paths vs their plain versions:
       Python group_smem_bytes == the library's; BM at A=289 (mismatch
       <= 1e-3); the banked group kernel, HT and Wiener, within 1e-4 relative
-      at 17x17x32x32 RGB matched, 9x9x64x96 RGB `default` (N=16) and
+      at 17x17x32x32 RGB matched, 9x9x64x96 RGB `default` (N=16),
+      17x17x32x32 and 19x19x32x32 `default` (the clusters of 16) and
       17x17x128x128; extract_groups exact and the two accumulate forms
       within 1e-5 relative at one 17x17x128x128 reference;
   (f) 17x17x128x128 RGB matched (synth seed 0, disp 1/2, noise seed 100,
@@ -50,8 +59,9 @@ Phases; any failure exits non-zero without the final "ok" line:
       its time limit;
   (j) gather_rows vs its plain version at the flagship's shapes: the
       [V0*V1, 81] int32 table of reference SAI 0's argmin maps, gathered at
-      its T*N slots; exactly equal; kernel, plain and index_select times
-      with a cold L2;
+      its T*N slots; exactly equal; the kernel and index_select in turns
+      over 21 rounds, each launch on a cold L2 (median, min, max), and the
+      plain version's time;
   (k) the flagship matched denoise with doff_mode "take" and "dma" (one
       warm run, then one timed run each, then (d)'s "direct" again): final
       PSNR within 0.01 dB of (d)'s and >= 28.37 dB; the "dma" run launches
@@ -77,6 +87,7 @@ bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
 
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -96,6 +107,7 @@ DOFF_PSNR_DELTA_MAX = 0.01  # (k): take/dma vs direct, final PSNR
 SR_PSNR_MIN = 31.549  # recorded 31.599 dB (flagship x2 SR, matched) less 0.05
 SR_OVER_BICUBIC_MIN = 1.5  # dB; bicubic recorded 29.853 dB
 ROUTED_PSNR_MIN = 29.83  # recorded 29.88 dB (occl-grad, routed) less 0.05
+GATHER_ROUNDS = 21  # (j): alternating cold-L2 rounds, kernel vs library
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 
@@ -319,16 +331,14 @@ def group_flops(lvl, mask, c, a_h, a_w, wiener) -> float:
     return float(torch.sum(per)) * c
 
 
-def group_check(label, params, x, basic, sigma_c, wiener, fn_name):
-    """A group kernel vs plain at the first reference SAI of one step:
-    (max |delta|, kernel ms, plain ms, bound ms, bound_by, step)."""
+def group_setup(params, x, basic, sigma_c, wiener):
+    """The group stage's inputs at the first reference SAI of one step, and
+    run(f, **kw): zero num/wden, then call a group function f on them."""
     import torch
 
-    from lfbm5d_torch.kernels import fused as kf
     from lfbm5d_torch.pipeline.denoise import _flat_pad
     from lfbm5d_torch.pipeline.engine import build_kernel_step
 
-    fn = getattr(kf, fn_name)
     sp = params.wiener if wiener else params.ht
     lam = 0.0 if wiener else params.lambda_3d
     a_h, a_w, h, w, c = x.shape
@@ -354,6 +364,71 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name):
           step.tables, num, wden, k=sp.k, nd=sp.n_disp, lambda_3d=lam,
           wiener=wiener, **kw)
 
+    return dict(sp=sp, step=step, noisy_pl=noisy_pl, basic_pl=basic_pl,
+                bidx=bidx, sim_y=sim_y, sim_x=sim_x, lvl=lvl, mask=mask,
+                num=num, wden=wden, run=run)
+
+
+def plan_line(lib, fn_name, n_sim, a_h, a_w, wiener) -> str:
+    """The group kernel's launch plan at this shape from the library (cs,
+    threads, shared bytes, max active clusters, CTAs per SM); fails unless
+    the Python copy (kernels/fused.py::group_plan) gives the same plan and
+    at least one cluster fits on the card."""
+    import ctypes
+
+    from lfbm5d_torch.kernels._build import check
+    from lfbm5d_torch.kernels.fused import group_plan
+
+    out = (ctypes.c_int * 5)()
+    fn = (lib.lfbm5d_group_occupancy if fn_name == "fused_group_step"
+          else lib.lfbm5d_group_occupancy_banked)
+    check(fn(n_sim, a_h, a_w, int(wiener), out), f"{fn_name} occupancy")
+    py = group_plan(n_sim, a_h, a_w, wiener)
+    if tuple(out[:3]) != py:
+        raise AssertionError(f"{fn_name} N={n_sim} {a_h}x{a_w}: library plan "
+                             f"{tuple(out[:3])} vs Python {py}")
+    if out[3] < 1:
+        raise AssertionError(f"{fn_name} N={n_sim} {a_h}x{a_w}: no cluster "
+                             f"of {out[0]} CTAs fits on the card")
+    return (f"cs {out[0]}, {out[1]} threads, {out[2]} B shared per CTA, "
+            f"max active clusters {out[3]}, CTAs per SM {out[4]}")
+
+
+def plan_table(lib) -> None:
+    """(a): the plan of every group-kernel shape the phases launch (the
+    matched, default and robust presets at 3x3, 9x9, 17x17 and 19x19),
+    Python copy == library, printed before the first timed run."""
+    from lfbm5d_torch import preset_denoise_params
+    from lfbm5d_torch.pipeline.engine import resolve_route
+
+    seen = set()
+    for preset in ("matched", "default", "robust"):
+        pp = preset_denoise_params(preset, 25.0)
+        for sp, wiener in ((pp.ht, False), (pp.wiener, True)):
+            for side in (3, 9, 17, 19):
+                route = resolve_route(sp, side, side)
+                key = (route, sp.n_sim, side, wiener)
+                if route == "two_kernel" or key in seen:
+                    continue
+                seen.add(key)
+                fn = ("fused_group_step" if route == "fused"
+                      else "fused_group_step_banked")
+                print(f"(a) plan {fn} N={sp.n_sim} {side}x{side} "
+                      f"{'Wiener' if wiener else 'HT'}: "
+                      f"{plan_line(lib, fn, sp.n_sim, side, side, wiener)}")
+
+
+def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib):
+    """A group kernel vs plain at the first reference SAI of one step:
+    (max |delta|, kernel ms, plain ms, bound ms, bound_by, setup)."""
+    from lfbm5d_torch.kernels import fused as kf
+
+    fn = getattr(kf, fn_name)
+    g = group_setup(params, x, basic, sigma_c, wiener)
+    run, num, wden, mask, lvl = (g["run"], g["num"], g["wden"], g["mask"],
+                                 g["lvl"])
+    a_h, a_w, _, _, c = x.shape
+    plan = plan_line(lib, fn_name, g["sp"].n_sim, a_h, a_w, wiener)
     run(fn)
     nk, dk = num.clone(), wden.clone()
     run(kf.fused_group_step_plain)
@@ -362,17 +437,18 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name):
     err = max(float((nk - num).abs().max()), float((dk - wden).abs().max()))
     live = int(mask[:, 0].sum())
     msg = (f"{label} {fn_name} {'Wiener' if wiener else 'HT'} (route "
-           f"{step.route}): {live}/{mask.shape[0]} live groups, rel num "
-           f"{rel_n:.2e}, rel den {rel_d:.2e}, max |d| {err:.3e}")
+           f"{g['step'].route}; {plan}): {live}/{mask.shape[0]} live groups, "
+           f"rel num {rel_n:.2e}, rel den {rel_d:.2e}, max |d| {err:.3e}")
     ms = cuda_ms(lambda: run(fn))
     pms = cuda_ms(lambda: run(kf.fused_group_step_plain), reps=2)
     print(msg + f"; kernel {ms:.3f} ms, plain {pms:.3f} ms")
     if not rel_n <= GROUP_REL_MAX or not rel_d <= GROUP_REL_MAX:
         raise AssertionError(f"{fn_name} ({label}) disagrees with plain")
-    moved = nbytes(noisy_pl, basic_pl, bidx, sim_y, sim_x, lvl, mask,
-                   step.tables.packed) + 2 * nbytes(num)
+    moved = nbytes(g["noisy_pl"], g["basic_pl"], g["bidx"], g["sim_y"],
+                   g["sim_x"], lvl, mask, g["step"].tables.packed) + 2 * nbytes(
+                       num)
     bms, by = bound(moved, group_flops(lvl, mask, c, a_h, a_w, wiener))
-    return err, ms, pms, bms, by, dict(run=run, step=step)
+    return err, ms, pms, bms, by, g
 
 
 def two_kernel_checks(params, x, sigma_c, dev):
@@ -499,10 +575,18 @@ def phase_gather(params, noisy, m, sigma_c):
     exact = bool(torch.equal(out, gather_rows_plain(table, rows)))
     same = bool(torch.equal(out.view(*sim_y.shape, a),
                             step.slot_table(bidx, sim_y, sim_x)))
-    ms = cuda_ms_cold(lambda: gather_rows(table, rows))
     pms = cuda_ms_cold(lambda: gather_rows_plain(table, rows))
     rows_l = rows.long()  # index_select's index type, converted untimed
-    lib = cuda_ms_cold(lambda: table.index_select(0, rows_l))
+    # the kernel and index_select in turns (kernel, library, library,
+    # kernel, ...), each launch on a cold L2: medians and ranges
+    pair = (lambda: gather_rows(table, rows),
+            lambda: table.index_select(0, rows_l))
+    times = ([], [])
+    for i in range(GATHER_ROUNDS):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            times[j].append(cuda_ms_cold(pair[j], reps=1))
+    (ms, lo, hi), (lib, llo, lhi) = (
+        (statistics.median(t), min(t), max(t)) for t in times)
     warm = cuda_ms(lambda: gather_rows(table, rows))
     # bytes the function must move: the indices, each distinct row of the
     # table once, and the output
@@ -510,9 +594,11 @@ def phase_gather(params, noisy, m, sigma_c):
     bms, by = bound(nbytes(rows, out) + need, 0)
     print(f"(j) gather_rows table {tuple(table.shape)} int32 "
           f"({nbytes(table) / 1e6:.1f} MB), {rows.numel()} rows: exact "
-          f"{exact}, equal to the step's slot_table {same}; cold L2: kernel "
-          f"{ms:.4f} ms, plain {pms:.4f} ms, index_select {lib:.4f} ms; "
-          f"kernel warm {warm:.4f} ms; bound {bms:.4f} ms ({by})")
+          f"{exact}, equal to the step's slot_table {same}; cold L2 over "
+          f"{GATHER_ROUNDS} alternating rounds: kernel median {ms:.4f} ms "
+          f"(min {lo:.4f}, max {hi:.4f}), index_select median {lib:.4f} ms "
+          f"(min {llo:.4f}, max {lhi:.4f}); plain {pms:.4f} ms; kernel warm "
+          f"{warm:.4f} ms; bound {bms:.4f} ms ({by})")
     if not (exact and same):
         raise AssertionError("gather_rows disagrees with its plain version")
     return dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
@@ -645,6 +731,131 @@ def drive(label, kernels, path, fn):
     return out, launches
 
 
+def parent_group_fn(plib, banked, tables):
+    """A group function over the parent tree's library (its C interface:
+    tables in the packed layout f2 i2 f4s i4s f4t i4t stack_f stack_i
+    kaiser, per-block workspaces, one block per SM), called like
+    fused_group_step."""
+    import torch
+
+    gt = tables.gt
+
+    def ang(m, size):
+        return torch.eye(size, device=tables.packed.device) if m is None else m
+
+    old = torch.cat([t.reshape(-1).float() for t in (
+        gt.f2, gt.i2, ang(gt.f4s, tables.a_h), ang(gt.i4s, tables.a_h),
+        ang(gt.f4t, tables.a_w), ang(gt.i4t, tables.a_w), gt.stack_f,
+        gt.stack_i, tables.kaiser)]).to(tables.packed.device).contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, _tab,
+            num, wden, *, k, nd, lambda_3d, wiener):
+        from lfbm5d_torch.kernels._build import stream_of
+
+        c, a, hp, wp = noisy.shape
+        t, n = sim_y.shape
+        grid = min(t, sms)
+        size = k * k * n * a
+        ws = torch.empty(((2 if wiener and banked else 1) * grid, size),
+                         device=noisy.device)
+        ptrs = [noisy.data_ptr(), basic.data_ptr() if wiener else None,
+                bidx.data_ptr(), None, sim_y.data_ptr(), sim_x.data_ptr(),
+                lvl.data_ptr(), mask.data_ptr(), sigma_c.data_ptr(),
+                old.data_ptr(), num.data_ptr(), wden.data_ptr()]
+        if banked:
+            ptrs += [ws[grid:].data_ptr() if wiener else None, ws.data_ptr()]
+            fn = plib.lfbm5d_group_step_banked
+        else:
+            ptrs += [ws.data_ptr() if wiener else None]
+            fn = plib.lfbm5d_group_step
+        rc = fn(*ptrs, t, n, a, tables.a_h, tables.a_w, c, hp, wp,
+                hp - k + 1, wp - k + 1, nd, ref, int(wiener),
+                float(lambda_3d), grid, stream_of(noisy))
+        if rc:
+            raise RuntimeError(f"parent group kernel: CUDA error {rc}")
+
+    return run
+
+
+def ab(parent_dir: str) -> int:
+    """--ab PARENT: the parent tree's two group kernels (built from
+    PARENT/lfbm5d_torch/csrc) against this tree's, on the same inputs, in
+    turns parent, new, new, parent (5 launches each), at row 4's shape
+    (flagship reference SAI 0, matched), row 5's (17x17x128x128 reference
+    SAI 0, matched) and the N=16 `default` shape of (e) (9x9x64x96)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params
+    from lfbm5d_torch.kernels import _build
+    from lfbm5d_torch.kernels import fused as kf
+    from lfbm5d_torch.lf import color_matrix
+
+    print(card_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = _build.library()
+    src = Path(parent_dir) / "lfbm5d_torch" / "csrc"
+    plib = ctypes.CDLL(str(_build.build(src)))
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plib.lfbm5d_group_step.argtypes = [p_] * 13 + [i_] * 13 + [f_, i_, p_]
+    plib.lfbm5d_group_step_banked.argtypes = ([p_] * 14 + [i_] * 13
+                                              + [f_, i_, p_])
+    for line in ptxas_lines(_build.build_log):
+        print(f"parent ptxas {line}")
+    dev = torch.device("cuda:0")
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
+    sig = _sigma(dev)
+    matched = preset_denoise_params("matched", 25.0, chunk=128)
+    dflt = preset_denoise_params("default", 25.0)
+    flag, flag_clean = lf_on_card(9, 434, 625, 1)
+    mid = lf_on_card(17, 128, 128, 100)[0] @ m.T
+    small = lf_on_card(9, 64, 96, 1)[0] @ m.T
+    cases = (
+        ("row 4 flagship", matched, flag @ m.T, flag_clean @ m.T,
+         "fused_group_step"),
+        ("row 5 17x17x128x128", matched, mid, mid + 0.5,
+         "fused_group_step_banked"),
+        ("9x9x64x96 default", dflt, small, small + 0.5,
+         "fused_group_step_banked"),
+    )
+    for label, params, x, basic_w, fn_name in cases:
+        tot = [0.0, 0.0]
+        for basic, wiener in ((None, False), (basic_w, True)):
+            g = group_setup(params, x, basic, sig, wiener)
+            new = getattr(kf, fn_name)
+            par = parent_group_fn(plib, fn_name.endswith("banked"),
+                                  g["step"].tables)
+            g["run"](par)
+            pn, pd = g["num"].clone(), g["wden"].clone()
+            g["run"](new)
+            rel = float((g["num"] - pn).norm() / pn.norm())
+            rel_d = float((g["wden"] - pd).norm() / pd.norm())
+            a_h, a_w = x.shape[:2]
+            plan = plan_line(lib, fn_name, g["sp"].n_sim, a_h, a_w, wiener)
+            ms = [cuda_ms(lambda f=f: g["run"](f))
+                  for f in (par, new, new, par)]
+            p_ms, n_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+            tot[0] += p_ms
+            tot[1] += n_ms
+            print(f"ab {label} {'Wiener' if wiener else 'HT'} ({plan}): "
+                  f"parent {ms[0]:.3f} / {ms[3]:.3f} ms, new {ms[1]:.3f} / "
+                  f"{ms[2]:.3f} ms, parent/new {p_ms / n_ms:.2f}x; new vs "
+                  f"parent rel num {rel:.2e}, rel den {rel_d:.2e}")
+        print(f"ab {label} HT + Wiener: parent {tot[0]:.3f} ms, new "
+              f"{tot[1]:.3f} ms, parent/new {tot[0] / tot[1]:.2f}x")
+    return 0
+
+
+def _sigma(dev):
+    """Per-channel sigma of the OPP planes at sigma 25."""
+    from lfbm5d_torch.pipeline.denoise import _sigma_channels
+
+    return _sigma_channels(25.0, "opp", 3, "float32", dev)
+
+
 def profile(names) -> None:
     """Device time by kernel group of one warm run per cell."""
     import torch
@@ -712,6 +923,8 @@ def main(argv) -> int:
     if argv[:1] == ["--profile"]:
         profile(argv[1].split(",") if len(argv) > 1 else list(CELLS))
         return 0
+    if argv[:1] == ["--ab"] and len(argv) == 2:
+        return ab(argv[1])
     from lfbm5d_torch import preset_denoise_params, psnr, run_bm5d
     from lfbm5d_torch.kernels import _build
     from lfbm5d_torch.kernels.accumulate import (
@@ -728,9 +941,7 @@ def main(argv) -> int:
     from lfbm5d_torch.lf import (
         add_noise_np, color_matrix, ind_initialize, synthetic_lf,
     )
-    from lfbm5d_torch.pipeline.denoise import (
-        _flat_pad, _sigma_channels, ht_step,
-    )
+    from lfbm5d_torch.pipeline.denoise import _flat_pad, ht_step
     from lfbm5d_torch.pipeline.engine import build_kernel_step
 
     kernels = {
@@ -746,7 +957,7 @@ def main(argv) -> int:
     bm_path = ["self_distances_kernel", "cross_argmin_all_kernel"]
     dev = torch.device("cuda:0")
     m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
-    sig = _sigma_channels(25.0, "opp", 3, "float32", dev)
+    sig = _sigma(dev)
 
     phase = "(a)"
     launches = {}  # kernel -> launches on the path it serves
@@ -764,6 +975,7 @@ def main(argv) -> int:
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.1f} s'})")
         for line in ptxas_lines(_build.build_log):
             print(f"(a) ptxas {line}")
+        plan_table(lib)
 
         phase = "(b)"
         params = preset_denoise_params("matched", 25.0, chunk=128)
@@ -784,10 +996,10 @@ def main(argv) -> int:
                               "opp", engine="auto", device=dev)
         for basic, wiener in ((None, False), (small_basic, True)):
             group_check("(c) 9x9x64x96", params, small, basic, sig, wiener,
-                        "fused_group_step")
+                        "fused_group_step", lib)
         pilot = clean_dev @ m.T
         checks = [group_check("(c) flagship", params, x, basic, sig, wiener,
-                              "fused_group_step")
+                              "fused_group_step", lib)
                   for basic, wiener in ((None, False), (pilot, True))]
         rows["fused_group_step"] = dict(
             max_abs_err=max(r[0] for r in checks),
@@ -855,13 +1067,20 @@ def main(argv) -> int:
         x17 = lf_on_card(17, 32, 32, 1)[0] @ m.T
         for basic, wiener in ((None, False), (x17 + 0.5, True)):
             group_check("(e) 17x17x32x32 matched", params, x17, basic, sig,
-                        wiener, "fused_group_step_banked")
+                        wiener, "fused_group_step_banked", lib)
         dflt = preset_denoise_params("default", 25.0)
         for basic, wiener in ((None, False), (small_basic, True)):
             group_check("(e) 9x9x64x96 default", dflt, small, basic, sig,
-                        wiener, "fused_group_step_banked")
+                        wiener, "fused_group_step_banked", lib)
+        # N=16 at 17x17 and 19x19: the shapes that need clusters of 16
+        x19 = lf_on_card(19, 32, 32, 1)[0] @ m.T
+        for lf, name in ((x17, "17x17x32x32"), (x19, "19x19x32x32")):
+            for basic, wiener in ((None, False), (lf + 0.5, True)):
+                group_check(f"(e) {name} default", dflt, lf, basic, sig,
+                            wiener, "fused_group_step_banked", lib)
+        del x19
         checks = [group_check("(e) 17x17x128x128 matched", params, xm, basic,
-                              sig, wiener, "fused_group_step_banked")
+                              sig, wiener, "fused_group_step_banked", lib)
                   for basic, wiener in ((None, False), (xm + 0.5, True))]
         rows["fused_group_step_banked"] = dict(
             max_abs_err=max(r[0] for r in checks),

@@ -4,44 +4,36 @@
 // (TPU: extract by lane mux -> matmul chain -> shrink -> inverse -> banded
 // read-modify-write aggregation, per tile of reference patches, with the
 // disparity table sampled beforehand by kernels/gather.py::sample_doff).
-// Here one block owns one group (reference patch t) at a time and walks its
-// channels; blocks are persistent and stride over the T groups.
+// It takes the groups the step's `fused` route sends it: aH, aW <= 16,
+// N <= 16, and a group whose shared-memory budget fits one block
+// (lfbm5d_group_smem_bytes, the route rule of kernels/fused.py::group_fits).
 //
-// Per (group, channel):
-//   prologue  sample_doff folded in: the origin of every live patch (slot n,
-//             SAI a) is sim + displacement(bidx[a, sim_y, sim_x]), with the
-//             reference SAI's own patch undisplaced; read once per group.
-//             Given a per-slot table doff [T, N, A] (the step's `take` and
-//             `dma` modes), the displacement is doff[t, n, a] instead.
-//   extract   gather the ns*A patches (ns = 2**lvl live slots) into shared
-//             memory B, laid out [pixel][slot*A + SAI] with an odd column
-//             stride so every pass below is free of bank conflicts.
-//   forward   spatial F2 X F2^T per patch (registers), angular transform
-//             along s then t, stack transform by the group's 2**lvl matrix.
-//   shrink    HT: keep |c| >= lambda*sigma, weight 1/(sigma^2 max(nnz,1));
-//             Wiener: omega = B^2/(B^2+sigma^2) from the basic group, which
-//             is transformed first with its omega kept in a per-block
-//             device-memory workspace (one plane's group is N*A*k^2 floats,
-//             166 KB at the matched preset: two do not fit the 227 KB a block
-//             may use), weight 1/(sigma^2 sum omega^2).
-//   inverse   stack, angular, spatial.
-//   aggregate num += est*w*kaiser at every patch pixel by f32 atomicAdd
-//             (consecutive threads on consecutive pixels of a patch row);
-//             the denominator is DEFERRED: only w goes to the patch origin,
-//             and the caller convolves that field with the Kaiser window once
-//             per step (pipeline/engine.py). Order of the atomics varies from
-//             run to run, so sums agree with the plain twin to f32 rounding.
-// Slots beyond 2**lvl and groups whose mask is all false (flat reference
-// positions) add nothing: a dead group is skipped at once.
+// Contract (kernels/fused.py): per (group, channel) the origin of every live
+// patch (slot n, SAI a) is sim + displacement(bidx[a, sim_y, sim_x]), or
+// doff[t, n, a] when a per-slot table is given, with the reference SAI's own
+// patch undisplaced; forward spatial F2 X F2^T, angular along s then t,
+// stack by the group's 2**lvl matrix; HT (|c| >= lambda*sigma, weight
+// 1/(sigma^2 max(nnz,1))) or Wiener (omega = B^2/(B^2+sigma^2) from the
+// basic group, weight 1/(sigma^2 sum omega^2)); inverse; num += est*w*kaiser
+// at every patch pixel and wden += w at the patch origin only (the caller
+// convolves wden with the Kaiser window once per step). Slots beyond 2**lvl
+// and all-masked (flat) groups add nothing; a dead group is skipped at once.
+// The atomics' order varies from run to run, so sums agree with the plain
+// version to f32 rounding.
 //
-// What bounds it on this card: the transform chain is ~4 M fp32
-// multiply-adds per group-channel at N=8, A=81, from shared memory, with one
-// 175 KB block per SM (16 warps); the atomics are ns*A*k^2 per group-channel.
-// It is bound by instruction throughput and shared memory, with little
-// latency hiding. The stack depth is at most 16, the angular grid at most
-// 16 x 16, k is 8. The passes live in csrc/group_stage.cuh, shared with the
-// banked kernel (csrc/fused_banked.cu), which holds the group in device
-// memory for groups beyond the shared memory of one block.
+// Design (csrc/group_stage.cuh): one group per thread-block cluster, the 64
+// spatial frequencies split over its cs CTAs; the spatial transform runs in
+// registers at gather and at aggregation, the coefficients move once each
+// way through distributed shared memory, and the angular and stack passes
+// run unrolled per length on each CTA's slice against tables in constant
+// memory. Group and Wiener factors never leave the SMs. At the flagship
+// (N=8, 9x9) HT runs cs=2, Wiener cs=4, two 256-thread CTAs per SM.
+//
+// What bounds it on this card: fp32 operations (about 3.5 M multiply-adds
+// per group-channel at N=8, A=81 for HT, 5.2 M for Wiener), issued beside
+// one shared-memory load per transform line (not per multiply-add), the
+// f32 atomics of aggregation (ns*A*64 per group-channel) and three cluster
+// barriers per group-channel.
 
 #include "group_stage.cuh"
 
@@ -49,47 +41,47 @@ namespace {
 
 constexpr int MAXG = 16;
 
-__global__ void __launch_bounds__(THREADS, 1) group_kernel(Args p) {
+__global__ void __launch_bounds__(MAX_THREADS, 1) group_kernel(Args p) {
   extern __shared__ float sm[];
-  const int ps = (p.N * p.A) | 1;  // odd stride: conflict-free passes
-  float* B = sm;                   // [KK][ps]
-  float* M = B + KK * ps;          // transform tables
-  int* oy = (int*)(M + table_floats(p.N, p.levels, p.aH, p.aW));
-  run_groups<MAXG>(p, B, ps, M, oy, oy + p.N * p.A);
+  run_groups<MAXG>(p, sm);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the group kernel needs, in bytes.
+// The route budget of the fused route in bytes: the group in one block's
+// shared memory ([k^2][(N*A)|1]), the packed tables and the patch origins.
+// kernels/fused.py::group_smem_bytes is its copy; routes follow it.
 int lfbm5d_group_smem_bytes(int n, int a, int a_h, int a_w) {
-  const int msize = table_floats(n, stack_levels(n), a_h, a_w);
+  const int levels = 32 - __builtin_clz(n);
+  const int tables = 3 * KK + 2 * (a_h * a_h + a_w * a_w) + 2 * levels * n * n;
   return static_cast<int>(sizeof(float) *
-                          (KK * ((n * a) | 1) + msize + 2 * n * a));
+                          (KK * ((n * a) | 1) + tables + 2 * n * a));
+}
+
+// out[5]: cluster size, threads, dynamic shared bytes per CTA, max active
+// clusters and CTAs per SM of the group kernel at this shape.
+int lfbm5d_group_occupancy(int N, int aH, int aW, int wiener, int* out) {
+  return occupancy(group_kernel, N, aH, aW, wiener, out);
 }
 
 // doff: [T, N, A] per-slot displacement indices, or null to read them from
-// bidx (the step's `direct` mode).
+// bidx (the step's `direct` mode). tables: kernels/fused.py::kernel_tables.
 int lfbm5d_group_step(const void* noisy, const void* basic, const void* bidx,
                       const void* doff, const void* sim_y, const void* sim_x,
                       const void* lvl, const void* mask, const void* sigma,
-                      const void* mats, void* num, void* wden, void* work,
-                      int T, int N, int A, int aH, int aW, int C, int Hp,
-                      int Wp, int V0, int V1, int nd, int ref, int wiener,
-                      float lambda, int grid, void* stream) {
+                      const void* tables, void* num, void* wden, int T, int N,
+                      int A, int aH, int aW, int C, int Hp, int Wp, int V0,
+                      int V1, int nd, int ref, int wiener, float lambda,
+                      void* stream) {
   if (N > MAXN || aH > MAXG || aW > MAXG || aH * aW != A)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lfbm5d_group_smem_bytes(N, A, aH, aW);
-  cudaError_t err = cudaFuncSetAttribute(
-      group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Args p = make_args(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                           sigma, mats, num, wden, work, nullptr, T, N, A,
-                           aH, aW, C, Hp, Wp, V0, V1, nd, ref, wiener,
-                           lambda);
-  group_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                           sigma, num, wden, T, N, A, aH, aW, C, Hp, Wp, V0,
+                           V1, nd, ref, wiener, lambda);
+  return launch_groups(group_kernel, p, tables,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -29,8 +29,10 @@ _SIGNATURES = {
     "lfbm5d_self_distances": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "lfbm5d_cross_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "lfbm5d_group_smem_bytes": [_I, _I, _I, _I],
-    "lfbm5d_group_step": [_P] * 13 + [_I] * 13 + [_F, _I, _P],
-    "lfbm5d_group_step_banked": [_P] * 14 + [_I] * 13 + [_F, _I, _P],
+    "lfbm5d_group_occupancy": [_I] * 4 + [_P],
+    "lfbm5d_group_occupancy_banked": [_I] * 4 + [_P],
+    "lfbm5d_group_step": [_P] * 12 + [_I] * 13 + [_F, _P],
+    "lfbm5d_group_step_banked": [_P] * 12 + [_I] * 13 + [_F, _P],
     "lfbm5d_extract_groups": [_P] * 7 + [_I] * 10 + [_P],
     "lfbm5d_accumulate_groups": [_P] * 10 + [_I] * 10 + [_P],
     "lfbm5d_gather_rows": [_P] * 3 + [_I] * 2 + [_P],
@@ -54,12 +56,13 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the sources if this hash has no library yet; its path."""
+def build(src_dir: Path = SRC_DIR) -> Path:
+    """Compile the sources of src_dir if this hash has no library yet; its
+    path."""
     global build_seconds, build_log
-    srcs = sorted(SRC_DIR.glob("*.cu"))
+    srcs = sorted(src_dir.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sorted(SRC_DIR.glob("*.cu*")):
+    for s in sorted(src_dir.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_ROOT / h.hexdigest()[:16] / "liblfbm5d_kernels.so"

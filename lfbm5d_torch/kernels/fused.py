@@ -6,14 +6,18 @@ version.
 for every reference patch t of one reference SAI it extracts the 5D group at
 the similar-patch positions and their per-SAI disparity offsets, runs the
 forward transform chain, HT or Wiener shrinkage, the inverse chain, and adds
-the weighted estimate into the numerator. It holds the group in shared
-memory, so it takes groups of at most 232,448 bytes (`group_smem_bytes`).
+the weighted estimate into the numerator. It takes the `fused` route's
+shapes: groups whose shared-memory budget fits one block
+(`group_smem_bytes` <= 232,448 bytes, sides <= 16).
 
 `fused_group_step_banked` replaces lfbm5d_tpu/kernels/fused.py::
-fused_group_step_banked: the same function for groups beyond that (17x17
-grids, N=16 at 9x9; A <= 384 and aH, aW <= 19), with the group in a
-per-block device-memory workspace. Both kernels share their passes
-(csrc/group_stage.cuh) and the plain version below.
+fused_group_step_banked: the same function for the larger groups of the
+`banked` route (17x17 grids, N=16 at 9x9; A <= 384 and aH, aW <= 19). Both
+kernels run the passes of csrc/group_stage.cuh: a group is spread over a
+thread-block cluster by spatial frequency, held in the cluster's shared
+memory, so no group or Wiener factor goes to device memory; `group_plan`
+is the launch plan (cluster size, threads, shared bytes per CTA). Both share
+the plain version below.
 
 Contract (kernel and plain version alike), on the kernel's planar layout:
   noisy, basic   [C, A, Hp, Wp]   padded LF planes (basic: Wiener only)
@@ -52,23 +56,35 @@ from lfbm5d_torch.transforms.apply import GroupTransforms
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_N = 16  # stack depth the group kernels take
-MAX_SIDE = 16  # angular grid side of the shared-memory kernel
+MAX_SIDE = 16  # angular grid side of the fused route's kernel
 MAX_SIDE_BANKED = 19  # angular grid side of the banked kernel
 MAX_A_BANKED = 384  # SAIs of the banked kernel (3 TPU banks of 128)
+SMEM_PER_SM = 233_472  # bytes of shared memory of one SM
+SMEM_RESERVED = 1024  # bytes the system keeps per resident block
+STATIC_SMEM = 256  # bound on the group kernels' static shared memory
+MAX_THREADS = 512  # threads per SM of the group kernels (16 warps)
+MAX_CLUSTER = 16  # largest (non-portable) thread-block cluster on Hopper
+# kernel_tables: f2 i2 kaiser (64 each), f4s i4s f4t i4t (19*19 slots),
+# stack_f stack_i (levels 1, 2, 4, 8, 16 packed: 341 floats each)
+_ANG_SLOT = 19 * 19
+_STACK_SLOT = sum(4**lv for lv in range(5))
+KERNEL_TABLE_FLOATS = 3 * 64 + 4 * _ANG_SLOT + 2 * _STACK_SLOT
 _CHUNK = 256  # groups per gather in the plain version (memory bound only)
 
 
 def group_smem_bytes(n_sim: int, a: int, a_h: int, a_w: int) -> int:
-    """Shared memory of the group kernel in bytes: a copy of
-    csrc/fused.cu::lfbm5d_group_smem_bytes (group [k^2][(N*A)|1], tables,
-    patch origins), so routes are decided without the library."""
+    """The fused route's budget in bytes: a copy of
+    csrc/fused.cu::lfbm5d_group_smem_bytes (the group [k^2][(N*A)|1], the
+    tables and the patch origins in one block's shared memory), so routes
+    are decided without the library. The kernels' own shared memory is
+    `group_plan`'s."""
     levels = n_sim.bit_length()  # stack sizes 1, 2, ..., N
     tables = 3 * 64 + 2 * (a_h * a_h + a_w * a_w) + 2 * levels * n_sim**2
     return 4 * (64 * ((n_sim * a) | 1) + tables + 2 * n_sim * a)
 
 
 def group_fits(sp: StepParams, a_h: int, a_w: int) -> bool:
-    """True if the shared-memory group kernel takes this step's shapes."""
+    """True if the step's shapes take the `fused` route's group kernel."""
     return (sp.k == 8 and not sp.use_sd and sp.n_sim <= MAX_N
             and a_h <= MAX_SIDE and a_w <= MAX_SIDE
             and group_smem_bytes(sp.n_sim, a_h * a_w, a_h, a_w) <= MAX_SMEM)
@@ -81,14 +97,55 @@ def banked_fits(sp: StepParams, a_h: int, a_w: int) -> bool:
             and a_h * a_w <= MAX_A_BANKED)
 
 
+def group_plan(n_sim: int, a_h: int, a_w: int,
+               wiener: bool) -> tuple[int, int, int]:
+    """(cluster size, threads, dynamic shared bytes per CTA) of the group
+    kernels: a copy of csrc/group_stage.cuh::make_plan. Each CTA holds 64/cs
+    spatial frequencies of the group ([regions][64/cs][ps] floats, ps =
+    (N*aH*(aW|1))|1, two regions for Wiener) and the origins of its share
+    of the N*A patches; the fewest CTAs that fit two 256-thread CTAs on an
+    SM, else one 512-thread CTA. Raises if no cluster holds the group."""
+    ps = (n_sim * a_h * (a_w | 1)) | 1
+    for per_sm in (2, 1):
+        limit = min(MAX_SMEM, SMEM_PER_SM // per_sm - SMEM_RESERVED)
+        cs = 1
+        while cs <= MAX_CLUSTER:
+            patches = -(-n_sim * a_h * a_w // cs)
+            smem = 4 * ((2 if wiener else 1) * (64 // cs) * ps + 2 * patches)
+            if smem <= limit - STATIC_SMEM:
+                return cs, MAX_THREADS // per_sm, smem
+            cs *= 2
+    raise ValueError(f"no cluster of <= {MAX_CLUSTER} CTAs holds an N={n_sim}"
+                     f" {a_h}x{a_w} group")
+
+
+def kernel_tables(parts, stack_f, stack_i, device) -> torch.Tensor:
+    """The group kernels' constant-memory tables (csrc/group_stage.cuh::
+    Tables), f32: parts = (f2, i2, kaiser, f4s, i4s, f4t, i4t), the angular
+    ones each at the head of a 19*19 slot; then the stack matrices
+    [levels, N, N] of sizes s = 1, 2, ..., N as [s][s] at (s*s - 1)/3 of
+    their slot."""
+    out = torch.zeros(KERNEL_TABLE_FLOATS, dtype=torch.float32, device=device)
+    offs = (0, 64, 128) + tuple(192 + i * _ANG_SLOT for i in range(4))
+    for off, m in zip(offs, parts):
+        out[off:off + m.numel()] = m.reshape(-1)
+    base = 192 + 4 * _ANG_SLOT
+    for i, st in enumerate((stack_f, stack_i)):
+        for lv in range(st.shape[0]):
+            s = 1 << lv
+            off = base + i * _STACK_SLOT + (s * s - 1) // 3
+            out[off:off + s * s] = st[lv, :s, :s].reshape(-1)
+    return out
+
+
 @dataclass(frozen=True)
 class GroupTables:
     """Transform constants of one step: the plain version's GroupTransforms
-    and Kaiser window, and the same tables packed for the kernel."""
+    and Kaiser window, and the same tables laid out for the kernels."""
 
     gt: GroupTransforms
     kaiser: torch.Tensor  # [k, k]
-    packed: torch.Tensor  # f32: f2 i2 f4s i4s f4t i4t stack_f stack_i kaiser
+    packed: torch.Tensor | None  # f32 `kernel_tables`; None: no kernel fits
     a_h: int
     a_w: int
 
@@ -104,11 +161,12 @@ class GroupTables:
                 return torch.eye(size, dtype=dtype, device=device)
             return m
 
-        parts = (gt.f2, gt.i2, ang(gt.f4s, a_h), ang(gt.i4s, a_h),
-                 ang(gt.f4t, a_w), ang(gt.i4t, a_w), gt.stack_f, gt.stack_i,
-                 kai)
-        packed = torch.cat([p.reshape(-1) for p in parts]).to(torch.float32)
-        return GroupTables(gt, kai, packed.contiguous(), a_h, a_w)
+        parts = (gt.f2, gt.i2, kai, ang(gt.f4s, a_h), ang(gt.i4s, a_h),
+                 ang(gt.f4t, a_w), ang(gt.i4t, a_w))
+        fits = max(a_h, a_w) <= MAX_SIDE_BANKED and sp.n_sim <= MAX_N
+        packed = (kernel_tables(parts, gt.stack_f, gt.stack_i, device)
+                  if fits else None)
+        return GroupTables(gt, kai, packed, a_h, a_w)
 
 
 def fused_group_step_plain(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
@@ -173,6 +231,9 @@ def _check(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c,
     require(sigma_c, "sigma_c", f32, 1, dev)
     require(num, "num", f32, 4, dev)
     require(wden, "wden", f32, 4, dev)
+    if tables.packed is None:
+        raise ValueError(f"{what}: no group kernel takes {tables.a_h}x"
+                         f"{tables.a_w} SAIs at these tables' N")
     require(tables.packed, "tables.packed", f32, 1, dev)
     t, n_sim = sim_y.shape
     if k != 8:
@@ -191,6 +252,24 @@ def _check(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c,
             raise ValueError(f"{what}: doff {tuple(doff.shape)} vs "
                              f"{(t, n_sim, a)}")
     return c, a, hp, wp, t, n_sim
+
+
+def _pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c,
+              tables, num, wden, wiener):
+    """The pointer arguments of both C entry points, in order."""
+    return (noisy.data_ptr(), basic.data_ptr() if wiener else None,
+            bidx.data_ptr(), None if doff is None else doff.data_ptr(),
+            sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
+            mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
+            num.data_ptr(), wden.data_ptr())
+
+
+def _launch_what(name, n_sim, a_h, a_w, wiener):
+    """`name` and the shape and plan it launched, for a launch error."""
+    cs, threads, smem = group_plan(n_sim, a_h, a_w, wiener)
+    return (f"{name} (N={n_sim}, {a_h}x{a_w} SAIs, "
+            f"{'Wiener' if wiener else 'HT'}: clusters of {cs} CTAs x "
+            f"{threads} threads, {smem} bytes of shared memory each)")
 
 
 def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
@@ -216,26 +295,19 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
     smem = group_smem_bytes(n_sim, a, a_h, a_w)
     if smem > MAX_SMEM:
         raise ValueError(
-            f"group kernel: N={n_sim}, A={a} needs {smem} bytes of shared "
-            f"memory per block, over the {MAX_SMEM} a block may use"
+            f"group kernel: N={n_sim}, A={a} is over the fused route's "
+            f"budget ({smem} > {MAX_SMEM} bytes); the banked kernel takes it"
         )
     if t == 0:
         return
-    dev = noisy.device
-    grid = min(t, torch.cuda.get_device_properties(dev).multi_processor_count)
-    work = (torch.empty((grid, k * k * n_sim * a), dtype=torch.float32,
-                        device=dev) if wiener else None)
     rc = library().lfbm5d_group_step(
-        noisy.data_ptr(), basic.data_ptr() if wiener else None,
-        bidx.data_ptr(), None if doff is None else doff.data_ptr(),
-        sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
-        mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
-        num.data_ptr(), wden.data_ptr(),
-        work.data_ptr() if wiener else None, t, n_sim, a, a_h,
-        a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref, int(wiener),
-        float(lambda_3d), grid, stream_of(noisy),
+        *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
+                   sigma_c, tables, num, wden, wiener),
+        t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref,
+        int(wiener), float(lambda_3d), stream_of(noisy),
     )
-    check(rc, "fused_group_step")
+    if rc:
+        check(rc, _launch_what("fused_group_step", n_sim, a_h, a_w, wiener))
     fused_group_step.launches += 1
 
 
@@ -244,9 +316,8 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                             *, k: int, nd: int, lambda_3d: float,
                             wiener: bool, use_sd: bool = False,
                             doff=None) -> None:
-    """`fused_group_step` for groups beyond one block's shared memory (the
-    same contract and plain version). One block per SM: the fastest grid
-    measured on an H100 (PERF.md)."""
+    """`fused_group_step` for the `banked` route's larger groups (the same
+    contract, plain version and cluster design; up to 19x19 SAIs)."""
     if noisy.device.type == "cpu":
         return fused_group_step_plain(
             noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
@@ -265,22 +336,15 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
             f"{a_h}x{a_w}")
     if t == 0:
         return
-    dev = noisy.device
-    grid = min(t, torch.cuda.get_device_properties(dev).multi_processor_count)
-    size = k * k * n_sim * a
-    ws = torch.empty(((2 if wiener else 1) * grid, size), dtype=torch.float32,
-                     device=dev)
     rc = library().lfbm5d_group_step_banked(
-        noisy.data_ptr(), basic.data_ptr() if wiener else None,
-        bidx.data_ptr(), None if doff is None else doff.data_ptr(),
-        sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
-        mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
-        num.data_ptr(), wden.data_ptr(),
-        ws[grid:].data_ptr() if wiener else None, ws.data_ptr(), t, n_sim, a,
-        a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref, int(wiener),
-        float(lambda_3d), grid, stream_of(noisy),
+        *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
+                   sigma_c, tables, num, wden, wiener),
+        t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref,
+        int(wiener), float(lambda_3d), stream_of(noisy),
     )
-    check(rc, "fused_group_step_banked")
+    if rc:
+        check(rc, _launch_what("fused_group_step_banked", n_sim, a_h, a_w,
+                               wiener))
     fused_group_step_banked.launches += 1
 
 

@@ -97,15 +97,29 @@ def test_kaiser_conv_spreads_origin_weights():
 
 
 def test_group_tables_packing():
+    """The kernels' constant-memory layout (csrc/group_stage.cuh::Tables):
+    f2 i2 kaiser, four 19x19 angular slots, two 341-float stack slots."""
     sp = from_reference(CASES["ht"][0])
     t = GroupTables.build(sp, 3, 5)
-    levels = 4  # log2(8) + 1
     assert t.packed.dtype == torch.float32
-    assert t.packed.numel() == 3 * 64 + 2 * (9 + 25) + 2 * levels * 64
+    assert t.packed.numel() == 3 * 64 + 4 * 361 + 2 * 341
     np.testing.assert_array_equal(t.packed[:64].numpy(),
                                   t.gt.f2.reshape(-1).numpy())
+    np.testing.assert_array_equal(t.packed[128:192].numpy(),
+                                  t.kaiser.reshape(-1).numpy())
+    f4t = 192 + 2 * 361
+    np.testing.assert_array_equal(t.packed[f4t:f4t + 25].numpy(),
+                                  t.gt.f4t.reshape(-1).numpy())
+    assert not t.packed[f4t + 25:f4t + 361].any()
+    stf = 192 + 4 * 361
+    for lv in range(4):  # sizes 1, 2, 4, 8 at (s*s - 1)/3, [s][s]
+        s = 1 << lv
+        off = stf + (s * s - 1) // 3
+        np.testing.assert_array_equal(
+            t.packed[off:off + s * s].numpy(),
+            t.gt.stack_f[lv, :s, :s].reshape(-1).numpy())
     tid = GroupTables.build(sp.replace(tau_4d="id"), 3, 5)
-    np.testing.assert_array_equal(tid.packed[128:137].numpy(),
+    np.testing.assert_array_equal(tid.packed[192:201].numpy(),
                                   np.eye(3, dtype=np.float32).reshape(-1))
 
 
