@@ -4,9 +4,9 @@
 Usage (from the repository root, one CUDA card):
 
     python chip_smoke.py                    the phases below
-    python chip_smoke.py --ab PARENT        the group kernels of a parent
+    python chip_smoke.py --ab PARENT        the two BM kernels of a parent
         checkout (PARENT, its lfbm5d_torch/csrc built apart) against this
-        tree's, in turns, at rows 4 and 5's shapes (see `ab`)
+        tree's, in turns, at (b)'s four shapes; outputs equal (see `ab`)
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
@@ -16,13 +16,17 @@ Usage (from the repository root, one CUDA card):
 
 Phases; any failure exits non-zero without the final "ok" line:
   (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a):
-      ptxas registers and spill per kernel; the launch plan of every
-      group-kernel shape the phases launch (cluster size, threads, shared
-      bytes per CTA, max active clusters, CTAs per SM), the Python copy
-      (kernels/fused.py::group_plan) equal to the library's;
-  (b) block-matching kernels vs their plain versions at one reference SAI of
-      the flagship (9x9x434x625 RGB, matched preset): mismatch fraction
-      <= 1e-3 and |distance delta| <= 1 quantum;
+      ptxas registers and spill per kernel (the BM kernels at k=8, and a
+      summary of k=1..16); the launch plan of every group-kernel shape the
+      phases launch (cluster size, threads, shared bytes per CTA, max active
+      clusters, CTAs per SM), the Python copy (kernels/fused.py::group_plan)
+      equal to the library's; the BM plans (kernels/bm.py::bm_plan,
+      self_plan) equal to the library's at every BM shape the phases launch;
+  (b) block-matching kernels vs their plain versions at reference SAI 0,
+      exactly equal (mismatch 0), with kernel ms, plain ms and the bound, at
+      four shapes: the flagship (9x9x434x625 RGB) as `matched` (n=16, nd=1,
+      p=8), `default` (nd=2, pad 18, p=3, T=29601) and `fast` (n=8, nd=2,
+      p=6), and 17x17x128x128 `matched` (A=289);
   (c) group kernel vs its plain version on the same BM outputs, HT and
       Wiener, at 9x9x64x96 RGB and at one flagship reference: num and the
       deferred den within 1e-4 relative (L2 norm; f32 atomics order, and an
@@ -34,10 +38,10 @@ Phases; any failure exits non-zero without the final "ok" line:
       small LF is held against the float64 plain pipeline on the CPU (within
       0.05 dB);
   (e) the kernels of the 17x17 and N=16 paths vs their plain versions:
-      Python group_smem_bytes == the library's; BM at A=289 (mismatch
-      <= 1e-3); the banked group kernel, HT and Wiener, within 1e-4 relative
-      at 17x17x32x32 RGB matched, 9x9x64x96 RGB `default` (N=16),
-      17x17x32x32 and 19x19x32x32 `default` (the clusters of 16) and
+      Python group_smem_bytes == the library's; the banked group kernel,
+      HT and Wiener, within 1e-4 relative at 17x17x32x32 RGB matched,
+      9x9x64x96 RGB `default` (N=16), 17x17x32x32 and 19x19x32x32
+      `default` (the clusters of 16) and
       17x17x128x128; extract_groups exact and the two accumulate forms
       within 1e-5 relative at one 17x17x128x128 reference;
   (f) 17x17x128x128 RGB matched (synth seed 0, disp 1/2, noise seed 100,
@@ -79,7 +83,8 @@ Phases; any failure exits non-zero without the final "ok" line:
       timed run_bm5d reaches final PSNR >= 29.83 dB (the reference's record
       29.88 less 0.05).
 Then the card's name and power limit, a {"kernels": [...]} line (launches
-from the path each kernel serves; ms and plain_ms at that path's shapes;
+from the path each kernel serves; ms and plain_ms at that path's shapes,
+the BM rows at the matched flagship;
 bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
 67 TFLOP/s that this run's inputs need), and the last line
 {"ok": true, "device": {...}}.
@@ -99,7 +104,6 @@ PSNR_17_MIN = 27.907  # recorded 27.957 dB (17x17x128x128 matched) less 0.05
 # flagship LF, final PSNR: recorded 28.416 dB (default) and 28.552 dB
 # (robust: default + 0.136) less 0.05 dB; s/LF ceilings guard the time limit
 PRESET_MIN = {"default": (28.366, 240.0), "robust": (28.502, 90.0)}
-BM_MISMATCH_MAX = 1e-3
 GROUP_REL_MAX = 1e-4
 ACC_REL_MAX = 1e-5
 PSNR_DELTA_MAX = 0.05
@@ -153,18 +157,41 @@ def card_line() -> str:
 
 
 def ptxas_lines(log: str):
-    """'kernel: registers; spills' per kernel from ptxas' -v report."""
+    """'kernel: registers; spills' per kernel from ptxas' -v report; a
+    kernel instantiated per k is named kernel<k>."""
     name, spill = None, ""
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*\d([a-z_]+_kernel(ILb[01])?)",
-                      line)
+        m = re.search(
+            r"entry function '\w*\d([a-z_]+_kernel)(ILb[01]|ILi(\d+)E)?", line)
         if m:
-            name = m.group(1)
+            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3)
+                                 else m.group(2) or "")
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line and name:
             yield f"{name}: {line.split(':', 1)[-1].strip()}; {spill}"
             name = None
+
+
+def print_ptxas(log: str, tag: str) -> None:
+    """The report of every kernel; of the per-k BM kernels, k=8 (every
+    preset's) and a summary of the others."""
+    per_k = {}
+    for line in ptxas_lines(log):
+        m = re.match(r"(\w+)<(\d+)>: .*?(\d+) registers.*?(\d+) bytes spill "
+                     r"stores", line)
+        if m:
+            per_k.setdefault(m.group(1), []).append(
+                (int(m.group(2)), int(m.group(3)), int(m.group(4))))
+            if m.group(2) != "8":
+                continue
+        print(f"{tag} ptxas {line}")
+    for name, rows in per_k.items():
+        regs = [r for _, r, _ in rows]
+        spilled = [k for k, _, sp in sorted(rows) if sp]
+        print(f"{tag} ptxas {name}<1..16>: {len(rows)} instantiations, "
+              f"{min(regs)}-{max(regs)} registers, spill stores at k="
+              f"{spilled or 'none'}")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -267,8 +294,47 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def bm_cases(x_flag, x17):
+    """(b)'s four BM shapes, [(label, ctx)]: reference SAI 0 of the
+    flagship (OPP planes x_flag) padded and gridded as the `matched`,
+    `default` and `fast` presets, and of 17x17x128x128 (x17) as `matched`
+    (A = 289)."""
+    from lfbm5d_torch import preset_denoise_params
+    from lfbm5d_torch.lf import ind_initialize
+    from lfbm5d_torch.pipeline.denoise import _flat_pad
+
+    out = []
+    for label, preset, x in (("flagship matched", "matched", x_flag),
+                             ("flagship default", "default", x_flag),
+                             ("flagship fast", "fast", x_flag),
+                             ("17x17x128x128 matched", "matched", x17)):
+        sp = preset_denoise_params(preset, 25.0).ht
+        h, w = x.shape[2:4]
+        out.append((label, dict(
+            sp=sp, match0=_flat_pad(x, sp.pad)[..., 0].contiguous(), ref=0,
+            ys=ind_initialize(h, sp.k, sp.p) + sp.pad,
+            xs=ind_initialize(w, sp.k, sp.p) + sp.pad)))
+    return out
+
+
+def bm_bounds(ctx, dk, bk):
+    """((bytes, fp32 operations) of self-BM, (bytes, operations) of
+    cross-argmin) at one BM shape."""
+    sp, match0 = ctx["sp"], ctx["match0"]
+    k, nd = sp.k, sp.n_disp
+    a, hp, wp = match0.shape
+    self_w = (nbytes(match0[ctx["ref"]], dk), dk.numel() * k * k * 3)
+    # per displacement: squared differences, vertical and horizontal k-taps
+    v0, v1 = bk.shape[1:]
+    ops = a * (2 * nd + 1) ** 2 * (3 * hp * wp + (k - 1) * (v0 * wp + v0 * v1))
+    return self_w, (nbytes(match0[ctx["ref"]], match0, bk), ops)
+
+
 def phase_bm(label, ctx):
-    """Self-BM and cross-argmin kernels vs plain at one reference SAI."""
+    """Self-BM and cross-argmin kernels vs plain at one reference SAI:
+    exactly equal; kernel ms, plain ms and the bound."""
+    import torch
+
     from lfbm5d_torch.kernels.bm import (
         cross_argmin_all_kernel, self_distances_kernel,
     )
@@ -277,41 +343,79 @@ def phase_bm(label, ctx):
     sp, match0, r = ctx["sp"], ctx["match0"], ctx["ref"]
     ys, xs, k, n, nd = ctx["ys"], ctx["xs"], sp.k, sp.n_search, sp.n_disp
     plane = match0[r]
-    a, hp, wp = match0.shape
     out = {}
-
     dk = self_distances_kernel(plane, ys, xs, k, n)
     dp = self_distances(plane, ys, xs, k, n)
-    mis = float((dk != dp).float().mean())
-    dmax = int((dk - dp).abs().max())
-    ms = cuda_ms(lambda: self_distances_kernel(plane, ys, xs, k, n))
-    pms = cuda_ms(lambda: self_distances(plane, ys, xs, k, n))
-    print(f"{label} self_distances {tuple(dk.shape)}: mismatch {mis:.3e}, "
-          f"max |d| {dmax} quanta; kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    if mis > BM_MISMATCH_MAX or dmax > 1:
-        raise AssertionError("self_distances kernel disagrees with plain")
-    bms, by = bound(nbytes(plane, dk), dk.numel() * k * k * 3)
-    out["self_distances_kernel"] = dict(max_abs_err=dmax, ms=ms, plain_ms=pms,
-                                        bound_ms=bms, bound_by=by)
-
     bk = cross_argmin_all_kernel(plane, match0, k, nd)
     bp = cross_argmin_all(plane, match0, k, nd)
-    mis = float((bk != bp).float().mean())
-    imax = int((bk - bp).abs().max())
-    ms = cuda_ms(lambda: cross_argmin_all_kernel(plane, match0, k, nd))
-    pms = cuda_ms(lambda: cross_argmin_all(plane, match0, k, nd), reps=2)
-    print(f"{label} cross_argmin_all {tuple(bk.shape)}: mismatch {mis:.3e}, "
-          f"max |index delta| {imax}; kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    if mis > BM_MISMATCH_MAX:
-        raise AssertionError("cross_argmin_all kernel disagrees with plain")
-    # per displacement: squared differences, vertical and horizontal k-taps
-    v0, v1 = bk.shape[1:]
-    ops = a * (2 * nd + 1) ** 2 * (3 * hp * wp + (k - 1) * (v0 * wp + v0 * v1))
-    bms, by = bound(nbytes(plane, match0, bk), ops)
-    out["cross_argmin_all_kernel"] = dict(max_abs_err=imax, ms=ms,
-                                          plain_ms=pms, bound_ms=bms,
-                                          bound_by=by)
+    self_w, cross_w = bm_bounds(ctx, dk, bk)
+    for name, got, want, kern, plain, work, preps in (
+            ("self_distances_kernel", dk, dp,
+             lambda: self_distances_kernel(plane, ys, xs, k, n),
+             lambda: self_distances(plane, ys, xs, k, n), self_w, 5),
+            ("cross_argmin_all_kernel", bk, bp,
+             lambda: cross_argmin_all_kernel(plane, match0, k, nd),
+             lambda: cross_argmin_all(plane, match0, k, nd), cross_w, 2)):
+        mis = int((got != want).sum())
+        ms = cuda_ms(kern)
+        pms = cuda_ms(plain, reps=preps)
+        bms, by = bound(*work)
+        print(f"{label} {name} {tuple(got.shape)} (k={k}, n={n}, nd={nd}): "
+              f"mismatch {mis}; kernel {ms:.4f} ms, plain {pms:.3f} ms, "
+              f"bound {bms:.4f} ms ({by}; bytes {bound(work[0], 0)[0]:.4f}, "
+              f"operations {bound(0, work[1])[0]:.4f}), kernel/bound "
+              f"{ms / bms:.2f}")
+        if mis or not torch.equal(got, want):
+            raise AssertionError(f"{name} ({label}) disagrees with plain")
+        out[name] = dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by)
     return out
+
+
+def bm_plan_table(lib) -> None:
+    """(a): the cross-argmin plan (tile, chunk, grid, shared bytes) and the
+    self-BM plan (threads, window pitch, runs) of every BM shape the phases
+    launch, Python copies (kernels/bm.py::bm_plan, self_plan) == library;
+    the flagship's printed."""
+    import ctypes
+
+    from lfbm5d_torch import preset_denoise_params
+    from lfbm5d_torch.kernels._build import check
+    from lfbm5d_torch.kernels.bm import bm_plan, self_plan
+    from lfbm5d_torch.lf import ind_initialize
+
+    lfs = ((9, 434, 625), (9, 434, 624), (17, 128, 128), (17, 512, 512),
+           (9, 24, 32), (9, 64, 96), (3, 32, 40), (17, 32, 32), (19, 32, 32))
+    seen = set()
+    for preset in ("matched", "default", "robust", "fast"):
+        sp = preset_denoise_params(preset, 25.0).ht
+        for side, h, w in lfs:
+            key = (h + 2 * sp.pad, w + 2 * sp.pad, side * side, sp.k,
+                   sp.n_disp)
+            if key in seen:
+                continue
+            seen.add(key)
+            out = (ctypes.c_int * 5)()
+            check(lib.lfbm5d_bm_plan(*key, out), "lfbm5d_bm_plan")
+            if tuple(out) != bm_plan(*key):
+                raise AssertionError(f"bm_plan{key}: library {tuple(out)} "
+                                     f"vs Python {bm_plan(*key)}")
+            t = (len(ind_initialize(h, sp.k, sp.p))
+                 * len(ind_initialize(w, sp.k, sp.p)))
+            sout = (ctypes.c_int * 3)()
+            check(lib.lfbm5d_self_plan(sp.k, sp.n_search, t, sout),
+                  "lfbm5d_self_plan")
+            py = self_plan(sp.k, sp.n_search, t)
+            if tuple(sout) != py:
+                raise AssertionError(f"self_plan({sp.k}, {sp.n_search}, {t}): "
+                                     f"library {tuple(sout)} vs Python {py}")
+            if (side, h, w) == (9, 434, 625):
+                print(f"(a) bm_plan {preset} flagship (hp, wp, A, k, nd) "
+                      f"{key}: tile {out[0]}x{out[1]}, SAI chunk {out[2]}, "
+                      f"grid {out[3]}, {out[4]} B shared; self-BM T={t}: "
+                      f"{sout[0]} threads, window pitch {sout[1]}")
+    print(f"(a) bm_plan, self_plan: Python copy == library at {len(seen)} "
+          f"shapes")
 
 
 def group_flops(lvl, mask, c, a_h, a_w, wiener) -> float:
@@ -731,121 +835,74 @@ def drive(label, kernels, path, fn):
     return out, launches
 
 
-def parent_group_fn(plib, banked, tables):
-    """A group function over the parent tree's library (its C interface:
-    tables in the packed layout f2 i2 f4s i4s f4t i4t stack_f stack_i
-    kaiser, per-block workspaces, one block per SM), called like
-    fused_group_step."""
-    import torch
-
-    gt = tables.gt
-
-    def ang(m, size):
-        return torch.eye(size, device=tables.packed.device) if m is None else m
-
-    old = torch.cat([t.reshape(-1).float() for t in (
-        gt.f2, gt.i2, ang(gt.f4s, tables.a_h), ang(gt.i4s, tables.a_h),
-        ang(gt.f4t, tables.a_w), ang(gt.i4t, tables.a_w), gt.stack_f,
-        gt.stack_i, tables.kaiser)]).to(tables.packed.device).contiguous()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def run(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, _tab,
-            num, wden, *, k, nd, lambda_3d, wiener):
-        from lfbm5d_torch.kernels._build import stream_of
-
-        c, a, hp, wp = noisy.shape
-        t, n = sim_y.shape
-        grid = min(t, sms)
-        size = k * k * n * a
-        ws = torch.empty(((2 if wiener and banked else 1) * grid, size),
-                         device=noisy.device)
-        ptrs = [noisy.data_ptr(), basic.data_ptr() if wiener else None,
-                bidx.data_ptr(), None, sim_y.data_ptr(), sim_x.data_ptr(),
-                lvl.data_ptr(), mask.data_ptr(), sigma_c.data_ptr(),
-                old.data_ptr(), num.data_ptr(), wden.data_ptr()]
-        if banked:
-            ptrs += [ws[grid:].data_ptr() if wiener else None, ws.data_ptr()]
-            fn = plib.lfbm5d_group_step_banked
-        else:
-            ptrs += [ws.data_ptr() if wiener else None]
-            fn = plib.lfbm5d_group_step
-        rc = fn(*ptrs, t, n, a, tables.a_h, tables.a_w, c, hp, wp,
-                hp - k + 1, wp - k + 1, nd, ref, int(wiener),
-                float(lambda_3d), grid, stream_of(noisy))
-        if rc:
-            raise RuntimeError(f"parent group kernel: CUDA error {rc}")
-
-    return run
-
-
 def ab(parent_dir: str) -> int:
-    """--ab PARENT: the parent tree's two group kernels (built from
-    PARENT/lfbm5d_torch/csrc) against this tree's, on the same inputs, in
-    turns parent, new, new, parent (5 launches each), at row 4's shape
-    (flagship reference SAI 0, matched), row 5's (17x17x128x128 reference
-    SAI 0, matched) and the N=16 `default` shape of (e) (9x9x64x96)."""
+    """--ab PARENT: the parent tree's two BM kernels (its lfbm5d_torch/csrc
+    built apart; the same C entry points) against this tree's, at (b)'s four
+    shapes, on the same inputs and preallocated outputs, in turns parent,
+    new, new, parent (5 launches each); the outputs must be equal."""
     import ctypes
     from pathlib import Path
 
     import torch
 
-    from lfbm5d_torch import preset_denoise_params
     from lfbm5d_torch.kernels import _build
-    from lfbm5d_torch.kernels import fused as kf
     from lfbm5d_torch.lf import color_matrix
+    from lfbm5d_torch.ops.distances import DIST_QUANT
 
     print(card_line())
-    torch.backends.cuda.matmul.allow_tf32 = False
     lib = _build.library()
-    src = Path(parent_dir) / "lfbm5d_torch" / "csrc"
-    plib = ctypes.CDLL(str(_build.build(src)))
-    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    plib.lfbm5d_group_step.argtypes = [p_] * 13 + [i_] * 13 + [f_, i_, p_]
-    plib.lfbm5d_group_step_banked.argtypes = ([p_] * 14 + [i_] * 13
-                                              + [f_, i_, p_])
-    for line in ptxas_lines(_build.build_log):
-        print(f"parent ptxas {line}")
+    print_ptxas(_build.build_log, "new")
+    plib = ctypes.CDLL(str(_build.build(Path(parent_dir) / "lfbm5d_torch"
+                                        / "csrc")))
+    print_ptxas(_build.build_log, "parent")
+    for name in ("lfbm5d_self_distances", "lfbm5d_cross_argmin"):
+        getattr(plib, name).argtypes = _build._SIGNATURES[name]
     dev = torch.device("cuda:0")
     m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
-    sig = _sigma(dev)
-    matched = preset_denoise_params("matched", 25.0, chunk=128)
-    dflt = preset_denoise_params("default", 25.0)
-    flag, flag_clean = lf_on_card(9, 434, 625, 1)
-    mid = lf_on_card(17, 128, 128, 100)[0] @ m.T
-    small = lf_on_card(9, 64, 96, 1)[0] @ m.T
-    cases = (
-        ("row 4 flagship", matched, flag @ m.T, flag_clean @ m.T,
-         "fused_group_step"),
-        ("row 5 17x17x128x128", matched, mid, mid + 0.5,
-         "fused_group_step_banked"),
-        ("9x9x64x96 default", dflt, small, small + 0.5,
-         "fused_group_step_banked"),
-    )
-    for label, params, x, basic_w, fn_name in cases:
-        tot = [0.0, 0.0]
-        for basic, wiener in ((None, False), (basic_w, True)):
-            g = group_setup(params, x, basic, sig, wiener)
-            new = getattr(kf, fn_name)
-            par = parent_group_fn(plib, fn_name.endswith("banked"),
-                                  g["step"].tables)
-            g["run"](par)
-            pn, pd = g["num"].clone(), g["wden"].clone()
-            g["run"](new)
-            rel = float((g["num"] - pn).norm() / pn.norm())
-            rel_d = float((g["wden"] - pd).norm() / pd.norm())
-            a_h, a_w = x.shape[:2]
-            plan = plan_line(lib, fn_name, g["sp"].n_sim, a_h, a_w, wiener)
-            ms = [cuda_ms(lambda f=f: g["run"](f))
-                  for f in (par, new, new, par)]
+    cases = bm_cases(lf_on_card(9, 434, 625, 1)[0] @ m.T,
+                     lf_on_card(17, 128, 128, 100)[0] @ m.T)
+    for label, ctx in cases:
+        sp, match0 = ctx["sp"], ctx["match0"]
+        k, n, nd = sp.k, sp.n_search, sp.n_disp
+        a, hp, wp = match0.shape
+        plane = match0[ctx["ref"]]
+        ys = torch.as_tensor(ctx["ys"], dtype=torch.int32, device=dev)
+        xs = torch.as_tensor(ctx["xs"], dtype=torch.int32, device=dev)
+        scale = DIST_QUANT / (k * k)
+        stream = _build.stream_of(plane)
+        dk = [torch.empty((len(ys) * len(xs), (2 * n + 1) ** 2),
+                          dtype=torch.int32, device=dev) for _ in range(2)]
+        bk = [torch.empty((a, hp - k + 1, wp - k + 1), dtype=torch.int32,
+                          device=dev) for _ in range(2)]
+
+        def self_on(L, out):
+            _build.check(L.lfbm5d_self_distances(
+                plane.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+                out.data_ptr(), hp, wp, len(ys), len(xs), k, n, scale,
+                stream), "self_distances")
+
+        def cross_on(L, out):
+            _build.check(L.lfbm5d_cross_argmin(
+                plane.data_ptr(), match0.data_ptr(), out.data_ptr(), a, hp,
+                wp, k, nd, scale, stream), "cross_argmin")
+
+        for name, fn, outs in (("self_distances", self_on, dk),
+                               ("cross_argmin", cross_on, bk)):
+            fn(plib, outs[0])
+            fn(lib, outs[1])
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(outs[0], outs[1]))
+            ms = [cuda_ms(lambda L=L, o=o: fn(L, o))
+                  for L, o in ((plib, outs[0]), (lib, outs[1]),
+                               (lib, outs[1]), (plib, outs[0]))]
             p_ms, n_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-            tot[0] += p_ms
-            tot[1] += n_ms
-            print(f"ab {label} {'Wiener' if wiener else 'HT'} ({plan}): "
-                  f"parent {ms[0]:.3f} / {ms[3]:.3f} ms, new {ms[1]:.3f} / "
-                  f"{ms[2]:.3f} ms, parent/new {p_ms / n_ms:.2f}x; new vs "
-                  f"parent rel num {rel:.2e}, rel den {rel_d:.2e}")
-        print(f"ab {label} HT + Wiener: parent {tot[0]:.3f} ms, new "
-              f"{tot[1]:.3f} ms, parent/new {tot[0] / tot[1]:.2f}x")
+            print(f"ab {label} {name} (k={k}, n={n}, nd={nd}, A={a}): parent "
+                  f"{ms[0]:.4f} / {ms[3]:.4f} ms, new {ms[1]:.4f} / "
+                  f"{ms[2]:.4f} ms, parent/new {p_ms / n_ms:.2f}x; outputs "
+                  f"equal {equal}")
+            if not equal:
+                raise AssertionError(f"{name} ({label}): the parent's and "
+                                     f"this tree's outputs differ")
     return 0
 
 
@@ -939,9 +996,9 @@ def main(argv) -> int:
     )
     from lfbm5d_torch.kernels.gather import gather_rows
     from lfbm5d_torch.lf import (
-        add_noise_np, color_matrix, ind_initialize, synthetic_lf,
+        add_noise_np, color_matrix, synthetic_lf,
     )
-    from lfbm5d_torch.pipeline.denoise import _flat_pad, ht_step
+    from lfbm5d_torch.pipeline.denoise import ht_step
     from lfbm5d_torch.pipeline.engine import build_kernel_step
 
     kernels = {
@@ -973,22 +1030,22 @@ def main(argv) -> int:
         print(f"(a) kernels built and loaded in "
               f"{time.perf_counter() - t0:.1f} s (nvcc: "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.1f} s'})")
-        for line in ptxas_lines(_build.build_log):
-            print(f"(a) ptxas {line}")
+        print_ptxas(_build.build_log, "(a)")
         plan_table(lib)
+        bm_plan_table(lib)
 
         phase = "(b)"
         params = preset_denoise_params("matched", 25.0, chunk=128)
         noisy_dev, clean_dev = lf_on_card(9, 434, 625, 1)
         x = noisy_dev @ m.T
-        sp = params.ht
-        xp = _flat_pad(x, sp.pad)
-        ctx = dict(
-            sp=sp, match0=xp[..., 0].contiguous(), ref=0,
-            ys=ind_initialize(434, sp.k, sp.p) + sp.pad,
-            xs=ind_initialize(625, sp.k, sp.p) + sp.pad,
-        )
-        rows = phase_bm("(b)", ctx)
+        mid, mid_clean = lf_on_card(17, 128, 128, 100)
+        xm = mid @ m.T
+        rows = {}
+        for label, ctx in bm_cases(x, xm):
+            out = phase_bm(f"(b) {label}", ctx)
+            if not rows:  # the matched flagship: the kernels line's rows
+                rows = out
+            del ctx
 
         phase = "(c)"
         small = lf_on_card(9, 64, 96, 1)[0] @ m.T
@@ -1033,7 +1090,7 @@ def main(argv) -> int:
             raise AssertionError(f"flagship PSNR below the record: basic "
                                  f"{p_basic:.3f}, final {p_final:.3f}")
         d_final, d_dt = p_final, dt
-        del noisy_dev, clean_dev, x, xp, ctx, pilot, basic, final
+        del noisy_dev, clean_dev, x, pilot, basic, final
 
         tiny = add_noise_np(synthetic_lf(3, 3, 32, 40, channels=3, seed=8),
                             25.0, seed=9)
@@ -1056,14 +1113,6 @@ def main(argv) -> int:
                 raise AssertionError(f"group_smem_bytes({n_sim}, {a}x{a}): "
                                      f"Python {py} vs library {c_}")
         print("(e) group_smem_bytes: Python copy == library at 5 shapes")
-        mid, mid_clean = lf_on_card(17, 128, 128, 100)
-        xm = mid @ m.T
-        sp = params.ht
-        xpm = _flat_pad(xm, sp.pad)
-        phase_bm("(e) 17x17x128x128", dict(
-            sp=sp, match0=xpm[..., 0].contiguous(), ref=0,
-            ys=ind_initialize(128, sp.k, sp.p) + sp.pad,
-            xs=ind_initialize(128, sp.k, sp.p) + sp.pad))
         x17 = lf_on_card(17, 32, 32, 1)[0] @ m.T
         for basic, wiener in ((None, False), (x17 + 0.5, True)):
             group_check("(e) 17x17x32x32 matched", params, x17, basic, sig,
@@ -1110,7 +1159,7 @@ def main(argv) -> int:
                                      f"{route}")
         if abs(p17["banked"] - p17["two_kernel"]) > PSNR_DELTA_MAX:
             raise AssertionError(f"the routes disagree: {p17}")
-        del mid, mid_clean, xm, xpm, x17
+        del mid, mid_clean, xm, x17
 
         phase = "(g)"
         t0 = time.perf_counter()

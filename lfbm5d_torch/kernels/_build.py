@@ -28,6 +28,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lfbm5d_self_distances": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "lfbm5d_cross_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "lfbm5d_bm_plan": [_I] * 5 + [_P],
+    "lfbm5d_self_plan": [_I] * 3 + [_P],
     "lfbm5d_group_smem_bytes": [_I, _I, _I, _I],
     "lfbm5d_group_occupancy": [_I] * 4 + [_P],
     "lfbm5d_group_occupancy_banked": [_I] * 4 + [_P],

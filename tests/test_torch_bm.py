@@ -106,3 +106,49 @@ def test_kernel_wrappers_raise_off_cpu_without_cuda():
         self_distances_kernel(meta, [5], [5], K, N)
     with pytest.raises(ValueError, match="CUDA"):
         cross_argmin_all_kernel(meta, meta[None], K, ND)
+
+
+WIDE = [(8, 2), (4, 2), (8, 1)]  # (n, nd): the `fast` and `default` windows
+
+
+def _wide_planes(n, nd):
+    clean = synthetic_lf(2, 2, H, W, channels=1, disp_bg=1, disp_fg=2, seed=5)
+    padded = pad_lf(add_noise_np(clean, 20.0, seed=6), n + nd)
+    return padded[..., 0].reshape(4, H + 2 * (n + nd), W + 2 * (n + nd))
+
+
+@pytest.mark.parametrize("n,nd", WIDE)
+def test_self_distances_wide_windows_equal_reference(n, nd):
+    """Integer-equal in float64 to the XLA scan and the interpret kernel
+    at the wider search windows."""
+    planes = _wide_planes(n, nd)
+    assert planes.dtype == np.float64
+    ys = ind_initialize(H, K, 3) + n + nd
+    xs = ind_initialize(W, K, 3) + n + nd
+    got = td.self_distances(torch.as_tensor(planes[1]), ys, xs, K, n).numpy()
+    want = np.asarray(jd.self_distances(jnp.asarray(planes[1]), ys, xs, K, n))
+    np.testing.assert_array_equal(got, want)
+    kern = np.asarray(jbm.self_distances_kernel(
+        jnp.asarray(planes[1]), tuple(int(v) for v in ys),
+        tuple(int(v) for v in xs), K, n, interpret=True,
+    ))
+    np.testing.assert_array_equal(got, kern)
+
+
+@pytest.mark.parametrize("n,nd", WIDE)
+def test_cross_argmin_wide_windows_equal_reference(n, nd):
+    planes = _wide_planes(n, nd)
+    a, hp, wp = planes.shape
+    got = td.cross_argmin_all(torch.as_tensor(planes[3]),
+                              torch.as_tensor(planes), K, nd).numpy()
+    for ai in range(a):
+        want = np.asarray(jd.cross_argmin(jnp.asarray(planes[3]),
+                                          jnp.asarray(planes[ai]), K, nd))
+        np.testing.assert_array_equal(got[ai], want)
+    wq = -(-(wp + 2 * nd) // 128) * 128
+    others = jnp.pad(jnp.asarray(planes), ((0, 0), (nd, nd),
+                                           (nd, wq - wp - nd)))
+    ref = jnp.pad(jnp.asarray(planes[3]), ((0, 2 * nd), (0, wq - wp)))
+    kern = np.asarray(jbm.cross_argmin_all_kernel(ref, others, K, nd,
+                                                  interpret=True))
+    np.testing.assert_array_equal(got, kern[:, :, :wp - K + 1])
