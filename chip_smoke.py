@@ -4,9 +4,11 @@
 Usage (from the repository root, one CUDA card):
 
     python chip_smoke.py                    the phases below
-    python chip_smoke.py --ab PARENT        the two BM kernels of a parent
-        checkout (PARENT, its lfbm5d_torch/csrc built apart) against this
-        tree's, in turns, at (b)'s four shapes; outputs equal (see `ab`)
+    python chip_smoke.py --ab PARENT        the kernels of a parent checkout
+        (PARENT, its lfbm5d_torch/csrc built apart) against this tree's, in
+        turns: the two BM kernels at (b)'s four shapes (outputs equal), and
+        extract / fused accumulate at (e)'s table shape (extract equal,
+        accumulate within 1e-5; see `ab`)
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
@@ -22,6 +24,8 @@ Phases; any failure exits non-zero without the final "ok" line:
       clusters, CTAs per SM), the Python copy (kernels/fused.py::group_plan)
       equal to the library's; the BM plans (kernels/bm.py::bm_plan,
       self_plan) equal to the library's at every BM shape the phases launch;
+      the extract/accumulate plan (kernels/extract.py::twokernel_plan) equal
+      to the library's at every two-kernel shape the phases launch;
   (b) block-matching kernels vs their plain versions at reference SAI 0,
       exactly equal (mismatch 0), with kernel ms, plain ms and the bound, at
       four shapes: the flagship (9x9x434x625 RGB) as `matched` (n=16, nd=1,
@@ -43,7 +47,14 @@ Phases; any failure exits non-zero without the final "ok" line:
       9x9x64x96 RGB `default` (N=16), 17x17x32x32 and 19x19x32x32
       `default` (the clusters of 16) and
       17x17x128x128; extract_groups exact and the two accumulate forms
-      within 1e-5 relative at one 17x17x128x128 reference;
+      within 1e-5 relative at one 17x17x128x128 reference (timed: the
+      kernels line's rows), at the first engine chunk of a 17x17x512x512
+      reference, at k in {4, 12, 16} with nd in {0, 2} (A = 289 and 400),
+      with SAI tiles (k=16 at 33x33), at A = 1, with a doff table and on an
+      all-masked chunk; the edge shapes no other phase launches, each kernel
+      vs plain: the group kernel at an A = 1 cluster plan and with N = 1
+      groups, the BM kernels at nd = 0; with a second card, one extract and
+      one group check on cuda:1 while cuda:0 is current;
   (f) 17x17x128x128 RGB matched (synth seed 0, disp 1/2, noise seed 100,
       sigma 25: the config-5 probe content) through engine="auto" (route
       "banked") and fused=False (route "two_kernel"): final PSNR >= 27.907
@@ -158,14 +169,17 @@ def card_line() -> str:
 
 def ptxas_lines(log: str):
     """'kernel: registers; spills' per kernel from ptxas' -v report; a
-    kernel instantiated per k is named kernel<k>."""
+    kernel instantiated per k is named kernel<k>, and per k and a flag
+    (the accumulate kernel's den) kernel<k, true|false>."""
     name, spill = None, ""
     for line in log.splitlines():
-        m = re.search(
-            r"entry function '\w*\d([a-z_]+_kernel)(ILb[01]|ILi(\d+)E)?", line)
+        m = re.search(r"entry function '\w*\d([a-z_]+_kernel)"
+                      r"(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
         if m:
-            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3)
-                                 else m.group(2) or "")
+            name = m.group(1) + (
+                "" if m.group(2) is None else f"<{m.group(2)}>"
+                if m.group(3) is None else
+                f"<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>")
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line and name:
@@ -178,18 +192,18 @@ def print_ptxas(log: str, tag: str) -> None:
     preset's) and a summary of the others."""
     per_k = {}
     for line in ptxas_lines(log):
-        m = re.match(r"(\w+)<(\d+)>: .*?(\d+) registers.*?(\d+) bytes spill "
-                     r"stores", line)
+        m = re.match(r"(\w+)<(\d+)(, \w+)?>: .*?(\d+) registers.*?(\d+) "
+                     r"bytes spill stores", line)
         if m:
-            per_k.setdefault(m.group(1), []).append(
-                (int(m.group(2)), int(m.group(3)), int(m.group(4))))
+            per_k.setdefault((m.group(1), m.group(3) or ""), []).append(
+                (int(m.group(2)), int(m.group(4)), int(m.group(5))))
             if m.group(2) != "8":
                 continue
         print(f"{tag} ptxas {line}")
-    for name, rows in per_k.items():
+    for (name, flag), rows in per_k.items():
         regs = [r for _, r, _ in rows]
         spilled = [k for k, _, sp in sorted(rows) if sp]
-        print(f"{tag} ptxas {name}<1..16>: {len(rows)} instantiations, "
+        print(f"{tag} ptxas {name}<1..16{flag}>: {len(rows)} instantiations, "
               f"{min(regs)}-{max(regs)} registers, spill stores at k="
               f"{spilled or 'none'}")
 
@@ -229,7 +243,7 @@ def cuda_ms_cold(fn, reps: int = 5) -> float:
     return total / reps
 
 
-def lf_on_card(a, h, w, noise_seed):
+def lf_on_card(a, h, w, noise_seed, dev="cuda:0"):
     """(noisy, clean) f32 on the card: the two-plane LF of CELLS."""
     import torch
 
@@ -237,8 +251,8 @@ def lf_on_card(a, h, w, noise_seed):
 
     clean = synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2, seed=0)
     noisy = add_noise_np(clean, 25.0, seed=noise_seed)
-    return (torch.as_tensor(noisy, dtype=torch.float32, device="cuda:0"),
-            torch.as_tensor(clean, dtype=torch.float32, device="cuda:0"))
+    return (torch.as_tensor(noisy, dtype=torch.float32, device=dev),
+            torch.as_tensor(clean, dtype=torch.float32, device=dev))
 
 
 def timed_run(lf, params, **kw):
@@ -300,21 +314,25 @@ def bm_cases(x_flag, x17):
     `default` and `fast` presets, and of 17x17x128x128 (x17) as `matched`
     (A = 289)."""
     from lfbm5d_torch import preset_denoise_params
+
+    return [(label, bm_ctx(preset_denoise_params(preset, 25.0).ht, x))
+            for label, preset, x in (
+                ("flagship matched", "matched", x_flag),
+                ("flagship default", "default", x_flag),
+                ("flagship fast", "fast", x_flag),
+                ("17x17x128x128 matched", "matched", x17))]
+
+
+def bm_ctx(sp, x):
+    """The BM inputs of step params sp at reference SAI 0 of the OPP LF x:
+    the padded matching planes and the reference grid."""
     from lfbm5d_torch.lf import ind_initialize
     from lfbm5d_torch.pipeline.denoise import _flat_pad
 
-    out = []
-    for label, preset, x in (("flagship matched", "matched", x_flag),
-                             ("flagship default", "default", x_flag),
-                             ("flagship fast", "fast", x_flag),
-                             ("17x17x128x128 matched", "matched", x17)):
-        sp = preset_denoise_params(preset, 25.0).ht
-        h, w = x.shape[2:4]
-        out.append((label, dict(
-            sp=sp, match0=_flat_pad(x, sp.pad)[..., 0].contiguous(), ref=0,
-            ys=ind_initialize(h, sp.k, sp.p) + sp.pad,
-            xs=ind_initialize(w, sp.k, sp.p) + sp.pad)))
-    return out
+    h, w = x.shape[2:4]
+    return dict(sp=sp, match0=_flat_pad(x, sp.pad)[..., 0].contiguous(),
+                ref=0, ys=ind_initialize(h, sp.k, sp.p) + sp.pad,
+                xs=ind_initialize(w, sp.k, sp.p) + sp.pad)
 
 
 def bm_bounds(ctx, dk, bk):
@@ -385,10 +403,13 @@ def bm_plan_table(lib) -> None:
     from lfbm5d_torch.lf import ind_initialize
 
     lfs = ((9, 434, 625), (9, 434, 624), (17, 128, 128), (17, 512, 512),
-           (9, 24, 32), (9, 64, 96), (3, 32, 40), (17, 32, 32), (19, 32, 32))
+           (9, 24, 32), (9, 64, 96), (3, 32, 40), (17, 32, 32), (19, 32, 32),
+           (20, 32, 32), (33, 24, 24), (1, 64, 64))
+    steps = [(preset, preset_denoise_params(preset, 25.0).ht)
+             for preset in ("matched", "default", "robust", "fast")]
+    steps.append(("matched nd=0", steps[0][1].replace(n_disp=0)))
     seen = set()
-    for preset in ("matched", "default", "robust", "fast"):
-        sp = preset_denoise_params(preset, 25.0).ht
+    for preset, sp in steps:
         for side, h, w in lfs:
             key = (h + 2 * sp.pad, w + 2 * sp.pad, side * side, sp.k,
                    sp.n_disp)
@@ -416,6 +437,33 @@ def bm_plan_table(lib) -> None:
                       f"{sout[0]} threads, window pitch {sout[1]}")
     print(f"(a) bm_plan, self_plan: Python copy == library at {len(seen)} "
           f"shapes")
+
+
+# (k, A) of every two-kernel launch of the phases: 17x17 matched, then
+# two_kernel_shapes' and second_card's
+TWO_KERNEL_SHAPES = ((8, 289), (4, 400), (12, 289), (16, 289), (16, 400),
+                     (16, 1089), (8, 1), (8, 81))
+
+
+def twokernel_plan_table(lib) -> None:
+    """(a): the extract/accumulate plan (patch rows per chunk, SAIs per tile,
+    stage pitch, shared bytes) at every two-kernel shape the phases launch,
+    Python copy (kernels/extract.py::twokernel_plan) == library."""
+    import ctypes
+
+    from lfbm5d_torch.kernels._build import check
+    from lfbm5d_torch.kernels.extract import twokernel_plan
+
+    for k, a in TWO_KERNEL_SHAPES:
+        out = (ctypes.c_int * 4)()
+        check(lib.lfbm5d_twokernel_plan(k, a, out), "lfbm5d_twokernel_plan")
+        if tuple(out) != twokernel_plan(k, a):
+            raise AssertionError(f"twokernel_plan({k}, {a}): library "
+                                 f"{tuple(out)} vs Python "
+                                 f"{twokernel_plan(k, a)}")
+        print(f"(a) twokernel_plan k={k}, A={a}: {out[0]} patch rows per "
+              f"chunk, {out[1]} SAIs per tile, pitch {out[2]}, {out[3]} B "
+              f"shared")
 
 
 def group_flops(lvl, mask, c, a_h, a_w, wiener) -> float:
@@ -500,16 +548,19 @@ def plan_line(lib, fn_name, n_sim, a_h, a_w, wiener) -> str:
 
 def plan_table(lib) -> None:
     """(a): the plan of every group-kernel shape the phases launch (the
-    matched, default and robust presets at 3x3, 9x9, 17x17 and 19x19),
-    Python copy == library, printed before the first timed run."""
+    matched, default and robust presets and matched at N=1, at 1x1, 3x3,
+    9x9, 17x17 and 19x19), Python copy == library, printed before the first
+    timed run."""
     from lfbm5d_torch import preset_denoise_params
     from lfbm5d_torch.pipeline.engine import resolve_route
 
     seen = set()
-    for preset in ("matched", "default", "robust"):
+    for preset, over in (("matched", {}), ("default", {}), ("robust", {}),
+                         ("matched", dict(n_sim=1))):
         pp = preset_denoise_params(preset, 25.0)
-        for sp, wiener in ((pp.ht, False), (pp.wiener, True)):
-            for side in (3, 9, 17, 19):
+        for sp, wiener in ((pp.ht.replace(**over), False),
+                           (pp.wiener.replace(**over), True)):
+            for side in (1, 3, 9, 17, 19):
                 route = resolve_route(sp, side, side)
                 key = (route, sp.n_sim, side, wiener)
                 if route == "two_kernel" or key in seen:
@@ -522,9 +573,11 @@ def plan_table(lib) -> None:
                       f"{plan_line(lib, fn, sp.n_sim, side, side, wiener)}")
 
 
-def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib):
+def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
+                timed=True):
     """A group kernel vs plain at the first reference SAI of one step:
-    (max |delta|, kernel ms, plain ms, bound ms, bound_by, setup)."""
+    (max |delta|, kernel ms, plain ms, bound ms, bound_by, setup); the times
+    None unless timed (CUDA events time the current device only)."""
     from lfbm5d_torch.kernels import fused as kf
 
     fn = getattr(kf, fn_name)
@@ -543,9 +596,12 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib):
     msg = (f"{label} {fn_name} {'Wiener' if wiener else 'HT'} (route "
            f"{g['step'].route}; {plan}): {live}/{mask.shape[0]} live groups, "
            f"rel num {rel_n:.2e}, rel den {rel_d:.2e}, max |d| {err:.3e}")
-    ms = cuda_ms(lambda: run(fn))
-    pms = cuda_ms(lambda: run(kf.fused_group_step_plain), reps=2)
-    print(msg + f"; kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    ms = pms = None
+    if timed:
+        ms = cuda_ms(lambda: run(fn))
+        pms = cuda_ms(lambda: run(kf.fused_group_step_plain), reps=2)
+        msg += f"; kernel {ms:.3f} ms, plain {pms:.3f} ms"
+    print(msg)
     if not rel_n <= GROUP_REL_MAX or not rel_d <= GROUP_REL_MAX:
         raise AssertionError(f"{fn_name} ({label}) disagrees with plain")
     moved = nbytes(g["noisy_pl"], g["basic_pl"], g["bidx"], g["sim_y"],
@@ -555,9 +611,128 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib):
     return err, ms, pms, bms, by, g
 
 
-def two_kernel_checks(params, x, sigma_c, dev):
+def two_kernel_case(sp, lam, x, sigma_c, doff_mode="direct"):
+    """The two-kernel route's inputs at the first reference SAI of an HT step
+    of step params sp on LF x: (planes, (bidx, sim_y, sim_x, mask, ref),
+    doff (None when direct), Kaiser window [k*k])."""
+    from lfbm5d_torch.pipeline.denoise import _flat_pad
+    from lfbm5d_torch.pipeline.engine import build_kernel_step
+
+    a_h, a_w, h, w, c = x.shape
+    step = build_kernel_step(sp, lam, a_h, a_w, h, w, c, False, "float32",
+                             str(x.device), False, doff_mode)
+    xp = _flat_pad(x, sp.pad)
+    pl = xp.permute(3, 0, 1, 2).contiguous()
+    r = step.refs[0]
+    sy, sx, _, mask, bidx = step.block_match(
+        xp[..., 0].contiguous(), r, step.flat_mask(pl, sigma_c))
+    return (pl, (bidx, sy, sx, mask, r), step.slot_table(bidx, sy, sx),
+            step.tables.kaiser.reshape(-1))
+
+
+def _rel(got, want) -> float:
+    """L2 distance relative to want; max |got| where want is all zero."""
+    norm = float(want.norm())
+    return (float((got - want).norm()) / norm if norm else
+            float(got.abs().max()))
+
+
+def hold_two_kernel(label, pl, geo, doff, kai, k, nd):
+    """extract_groups exactly equal to its plain version, and both
+    accumulate forms within ACC_REL_MAX of theirs, at one two-kernel shape;
+    (group tensor, weighted values, per-slot weights)."""
+    import torch
+
+    from lfbm5d_torch.kernels.accumulate import (
+        accumulate_groups, accumulate_groups_fused,
+        accumulate_groups_fused_plain, accumulate_groups_plain,
+    )
+    from lfbm5d_torch.kernels.extract import (
+        extract_groups, extract_groups_plain, twokernel_plan,
+    )
+
+    mask = geo[3]
+    g = extract_groups(pl, *geo, k=k, nd=nd, doff=doff)
+    exact = bool(torch.equal(g, extract_groups_plain(pl, *geo, k=k, nd=nd,
+                                                     doff=doff)))
+    gen = torch.Generator(device=pl.device).manual_seed(0)
+    wv = torch.rand(g.shape[:3], device=pl.device, generator=gen) * mask[None]
+    vals = g * (wv[..., None, None] * kai[:, None])
+    nk, dk, npl, dpl = (torch.zeros_like(pl) for _ in range(4))
+    accumulate_groups_fused(vals, wv, kai, *geo, nk, dk, k=k, nd=nd,
+                            doff=doff)
+    accumulate_groups_fused_plain(vals, wv, kai, *geo, npl, dpl, k=k, nd=nd,
+                                  doff=doff)
+    rel_n, rel_d = _rel(nk, npl), _rel(dk, dpl)
+    nk.zero_()
+    npl.zero_()
+    accumulate_groups(vals, *geo, nk, k=k, nd=nd, doff=doff)
+    accumulate_groups_plain(vals, *geo, npl, k=k, nd=nd, doff=doff)
+    rel_1 = _rel(nk, npl)
+    p, a = pl.shape[:2]
+    print(f"(e) two-kernel {label} (k={k}, nd={nd}, P={p}, A={a}, S="
+          f"{mask.numel()}, live {int(mask.sum())}, doff "
+          f"{doff is not None}; plan {twokernel_plan(k, a)}): extract exact "
+          f"{exact}; accumulate_groups_fused rel num {rel_n:.2e}, den "
+          f"{rel_d:.2e}; accumulate_groups rel {rel_1:.2e}")
+    if not exact:
+        raise AssertionError(f"extract_groups ({label}) disagrees with plain")
+    if max(rel_n, rel_d, rel_1) > ACC_REL_MAX:
+        raise AssertionError(f"accumulate ({label}) disagrees with plain")
+    return g, vals, wv
+
+
+def two_kernel_shapes(params, x17, big, sigma_c):
+    """(e): extract and both accumulate forms vs plain at the two-kernel
+    route's edge shapes: a chunk of 17x17x512x512 (the engine's chunk size),
+    k in {4, 12, 16} with nd in {0, 2} (A = 289 and the even A = 400), A
+    tiled (k = 16 at 33x33), A = 1 (flat_tau 0, as in `edge_checks`), a doff
+    table and an all-masked chunk.
+    The table shape (17x17x128x128) is `two_kernel_checks`'."""
+    import torch
+
+    from lfbm5d_torch.lf import color_matrix
+    from lfbm5d_torch.pipeline.engine import TWO_KERNEL_CHUNK_BYTES
+
+    dev = x17.device
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
+    sp, lam = params.ht, params.lambda_3d
+    pl, geo, _, kai = two_kernel_case(sp, lam, big, sigma_c)
+    c, a = pl.shape[:2]
+    chunk = TWO_KERNEL_CHUNK_BYTES // (c * sp.n_sim * sp.k**2 * a * 4)
+    bidx, sy, sx, mask, r = geo
+    hold_two_kernel("17x17x512x512 first chunk", pl,
+                    (bidx, sy[:chunk].contiguous(), sx[:chunk].contiguous(),
+                     mask[:chunk].contiguous(), r), None, kai, sp.k,
+                    sp.n_disp)
+    del pl, geo, bidx, sy, sx, mask
+    x20 = lf_on_card(20, 32, 32, 1, dev)[0] @ m.T
+    x33 = lf_on_card(33, 24, 24, 1, dev)[0] @ m.T
+    x1 = lf_on_card(1, 64, 64, 1, dev)[0] @ m.T
+    for k, nd, lf, name in ((4, 0, x20, "20x20x32x32"),
+                            (4, 2, x20, "20x20x32x32"),
+                            (12, 0, x17, "17x17x32x32"),
+                            (12, 2, x17, "17x17x32x32"),
+                            (16, 0, x17, "17x17x32x32"),
+                            (16, 2, x20, "20x20x32x32"),
+                            (16, 1, x33, "33x33x24x24 (SAI tiles)"),
+                            (8, 1, x1, "1x1x64x64")):
+        spk = sp.replace(k=k, n_disp=nd, n_search=8,
+                         flat_tau=sp.flat_tau if lf.shape[0] > 1 else 0.0)
+        pl, geo, _, kai = two_kernel_case(spk, lam, lf, sigma_c)
+        hold_two_kernel(name, pl, geo, None, kai, k, nd)
+    pl, geo, doff, kai = two_kernel_case(sp, lam, x17, sigma_c, "take")
+    hold_two_kernel("17x17x32x32 doff table", pl, geo, doff, kai, sp.k,
+                    sp.n_disp)
+    masked = (*geo[:3], torch.zeros_like(geo[3]), geo[4])
+    hold_two_kernel("17x17x32x32 all masked", pl, masked, None, kai, sp.k,
+                    sp.n_disp)
+
+
+def two_kernel_checks(params, x, sigma_c):
     """extract_groups and both accumulate forms vs plain at the first
-    reference SAI of the 17x17x128x128 HT step (one chunk of every group)."""
+    reference SAI of the 17x17x128x128 HT step (one chunk of every group):
+    the kernels line's rows (ms, plain ms, bound, library call)."""
     import torch
 
     from lfbm5d_torch.kernels.accumulate import (
@@ -567,62 +742,38 @@ def two_kernel_checks(params, x, sigma_c, dev):
     from lfbm5d_torch.kernels.extract import (
         extract_groups, extract_groups_plain, patch_coords,
     )
-    from lfbm5d_torch.pipeline.denoise import _flat_pad
-    from lfbm5d_torch.pipeline.engine import build_kernel_step
 
     sp = params.ht
-    a_h, a_w, h, w, c = x.shape
-    step = build_kernel_step(sp, params.lambda_3d, a_h, a_w, h, w, c, False,
-                             "float32", str(dev), False)
-    xp = _flat_pad(x, sp.pad)
-    pl = xp.permute(3, 0, 1, 2).contiguous()
-    r = step.refs[0]
-    sy, sx, lvl, mask, bidx = step.block_match(
-        xp[..., 0].contiguous(), r, step.flat_mask(pl, sigma_c))
     k, nd = sp.k, sp.n_disp
-    geo = (bidx, sy, sx, mask, r)
+    pl, geo, _, kai = two_kernel_case(sp, params.lambda_3d, x, sigma_c)
+    bidx, sy, sx, mask, r = geo
+    c = pl.shape[0]
+    g, vals, wv = hold_two_kernel("17x17x128x128 (the table shape)", pl, geo,
+                                  None, kai, k, nd)
     rows = {}
-
-    g = extract_groups(pl, *geo, k=k, nd=nd)
-    gp = extract_groups_plain(pl, *geo, k=k, nd=nd)
-    exact = bool(torch.equal(g, gp))
     ms = cuda_ms(lambda: extract_groups(pl, *geo, k=k, nd=nd))
     pms = cuda_ms(lambda: extract_groups_plain(pl, *geo, k=k, nd=nd), reps=2)
     yy, xx, a_i = patch_coords(bidx, sy, sx, r, k, nd)
-    p_i = torch.arange(c, device=dev)[:, None, None, None, None]
+    p_i = torch.arange(c, device=pl.device)[:, None, None, None, None]
     flat = (((p_i * pl.shape[1] + a_i) * pl.shape[2] + yy) * pl.shape[3]
             + xx).contiguous()  # gather indices, precomputed (not timed)
     lib = cuda_ms(lambda: torch.take(pl, flat))
-    print(f"(e) extract_groups {tuple(g.shape)}: exact {exact}; kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms, torch.take {lib:.3f} ms")
-    if not exact:
-        raise AssertionError("extract_groups kernel disagrees with plain")
+    print(f"(e) extract_groups {tuple(g.shape)}: kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms, torch.take {lib:.3f} ms")
     bms, by = bound(nbytes(pl, g, bidx, sy, sx, mask), 0)
     rows["extract_groups"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                   bound_ms=bms, bound_by=by, library_ms=lib)
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    wv = torch.rand(g.shape[:3], device=dev, generator=gen) * mask[None]
-    kai = step.tables.kaiser.reshape(-1)
-    vals = g * (wv[..., None, None] * kai[:, None])
     nk, dk, npl, dpl = (torch.zeros_like(pl) for _ in range(4))
-
-    def fused_k():
-        accumulate_groups_fused(vals, wv, kai, *geo, nk, dk, k=k, nd=nd)
-
-    fused_k()
+    accumulate_groups_fused(vals, wv, kai, *geo, nk, dk, k=k, nd=nd)
     accumulate_groups_fused_plain(vals, wv, kai, *geo, npl, dpl, k=k, nd=nd)
-    rel_n = float((nk - npl).norm() / npl.norm())
-    rel_d = float((dk - dpl).norm() / dpl.norm())
     err = max(float((nk - npl).abs().max()), float((dk - dpl).abs().max()))
-    ms = cuda_ms(fused_k)
+    ms = cuda_ms(lambda: accumulate_groups_fused(vals, wv, kai, *geo, nk, dk,
+                                                 k=k, nd=nd))
     pms = cuda_ms(lambda: accumulate_groups_fused_plain(
         vals, wv, kai, *geo, npl, dpl, k=k, nd=nd), reps=2)
-    print(f"(e) accumulate_groups_fused: rel num {rel_n:.2e}, rel den "
-          f"{rel_d:.2e}, max |d| {err:.3e}; kernel {ms:.3f} ms, plain "
-          f"{pms:.3f} ms")
-    if not rel_n <= ACC_REL_MAX or not rel_d <= ACC_REL_MAX:
-        raise AssertionError("accumulate_groups_fused disagrees with plain")
+    print(f"(e) accumulate_groups_fused: max |d| {err:.3e}; kernel {ms:.4f} "
+          f"ms, plain {pms:.3f} ms")
     live = float(mask.sum()) * c * k * k * pl.shape[1]
     bms, by = bound(nbytes(vals, wv, bidx, sy, sx, mask) + 2 * nbytes(pl),
                     3 * live)
@@ -634,7 +785,6 @@ def two_kernel_checks(params, x, sigma_c, dev):
     npl.zero_()
     accumulate_groups(vals, *geo, nk, k=k, nd=nd)
     accumulate_groups_plain(vals, *geo, npl, k=k, nd=nd)
-    rel_n = float((nk - npl).norm() / npl.norm())
     err = float((nk - npl).abs().max())
     ms = cuda_ms(lambda: accumulate_groups(vals, *geo, nk, k=k, nd=nd))
     pms = cuda_ms(lambda: accumulate_groups_plain(vals, *geo, npl, k=k,
@@ -642,15 +792,68 @@ def two_kernel_checks(params, x, sigma_c, dev):
     src = vals.expand(c, *yy.shape)
     lib = cuda_ms(lambda: npl.view(-1).index_add_(0, flat.view(-1),
                                                   src.reshape(-1)))
-    print(f"(e) accumulate_groups: rel num {rel_n:.2e}, max |d| {err:.3e}; "
-          f"kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ {lib:.3f} ms")
-    if not rel_n <= ACC_REL_MAX:
-        raise AssertionError("accumulate_groups disagrees with plain")
+    print(f"(e) accumulate_groups: max |d| {err:.3e}; kernel {ms:.4f} ms, "
+          f"plain {pms:.3f} ms, index_add_ {lib:.3f} ms")
     bms, by = bound(nbytes(vals, bidx, sy, sx, mask, pl), live)
     rows["accumulate_groups"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                      bound_ms=bms, bound_by=by,
                                      library_ms=lib)
     return rows
+
+
+def edge_checks(params, small, small_basic, sigma_c, lib):
+    """(e): the kernels at the edge shapes no earlier phase launches, each
+    vs its plain version: the group kernel at an A = 1 cluster plan
+    (1x1x64x64) and with N = 1 groups (9x9x64x96), HT and Wiener; the BM
+    kernels at nd = 0 (9x9x64x96, mismatch 0)."""
+    import torch
+
+    from lfbm5d_torch.lf import color_matrix
+
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32,
+                        device=small.device)
+    x1 = lf_on_card(1, 64, 64, 1, small.device)[0] @ m.T
+    # one SAI has no angular redundancy to measure: every group would be
+    # flat (masked) at the preset's flat_tau
+    p1 = params.replace(ht=params.ht.replace(flat_tau=0.0),
+                        wiener=params.wiener.replace(flat_tau=0.0))
+    for basic, wiener in ((None, False), (x1 + 0.5, True)):
+        group_check("(e) 1x1x64x64 matched, flat_tau 0", p1, x1, basic,
+                    sigma_c, wiener, "fused_group_step", lib, timed=False)
+    n1 = params.replace(ht=params.ht.replace(n_sim=1),
+                        wiener=params.wiener.replace(n_sim=1))
+    for basic, wiener in ((None, False), (small_basic, True)):
+        group_check("(e) 9x9x64x96 N=1", n1, small, basic, sigma_c, wiener,
+                    "fused_group_step", lib, timed=False)
+    phase_bm("(e) 9x9x64x96 nd=0", bm_ctx(params.ht.replace(n_disp=0),
+                                           small))
+
+
+def second_card(params):
+    """(e) with more than one card: one extract check and one group check
+    on cuda:1 while cuda:0 is current, so each wrapper has to launch on its
+    tensors' device."""
+    import torch
+
+    from lfbm5d_torch.kernels import _build
+    from lfbm5d_torch.lf import color_matrix
+
+    if torch.cuda.device_count() < 2:
+        print("(e) one card: the cuda:1 checks need a second one")
+        return
+    dev = torch.device("cuda:1")
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
+    x = lf_on_card(9, 64, 96, 1, dev)[0] @ m.T
+    sig = _sigma(dev)
+    sp = params.ht
+    pl, geo, _, kai = two_kernel_case(sp, params.lambda_3d, x, sig)
+    hold_two_kernel("9x9x64x96 on cuda:1", pl, geo, None, kai, sp.k,
+                    sp.n_disp)
+    group_check("(e) 9x9x64x96 on cuda:1", params, x, None, sig, False,
+                "fused_group_step", _build.library(), timed=False)
+    torch.cuda.synchronize(dev)
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("a wrapper left cuda:1 current")
 
 
 def phase_gather(params, noisy, m, sigma_c):
@@ -835,16 +1038,82 @@ def drive(label, kernels, path, fn):
     return out, launches
 
 
+def in_turns(label, fn, libs, outs):
+    """fn(lib, out) of the parent (libs[0]) and this tree (libs[1]) in turns
+    parent, new, new, parent, 5 launches each: (parent ms, new ms)."""
+    ms = [cuda_ms(lambda i=i: fn(libs[i], outs[i])) for i in (0, 1, 1, 0)]
+    p_ms, n_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    print(f"ab {label}: parent {ms[0]:.4f} / {ms[3]:.4f} ms, new "
+          f"{ms[1]:.4f} / {ms[2]:.4f} ms, parent/new {p_ms / n_ms:.2f}x")
+    return p_ms, n_ms
+
+
+def ab_two_kernel(libs, params, x, sigma_c):
+    """--ab at (e)'s table shape (17x17x128x128, reference SAI 0, matched
+    HT): the two trees' extract kernels must write equal group tensors and
+    their fused accumulate kernels agree within ACC_REL_MAX."""
+    import torch
+
+    from lfbm5d_torch.kernels import _build
+
+    sp = params.ht
+    k, nd = sp.k, sp.n_disp
+    pl, (bidx, sy, sx, mask, r), _, kai = two_kernel_case(
+        sp, params.lambda_3d, x, sigma_c)
+    p, a, hp, wp = pl.shape
+    g, n = sy.shape
+    stream = _build.stream_of(pl)
+    geo = (bidx.data_ptr(), None, sy.data_ptr(), sx.data_ptr(),
+           mask.data_ptr())
+    dims = (g * n, p, a, hp, wp, hp - k + 1, wp - k + 1, k, nd, r, stream)
+
+    def extract_on(lib, out):
+        _build.check(lib.lfbm5d_extract_groups(pl.data_ptr(), *geo,
+                                               out.data_ptr(), *dims),
+                     "extract_groups")
+
+    groups = [torch.empty((p, g, n, k * k, a), device=pl.device)
+              for _ in range(2)]
+    for lib, out in zip(libs, groups):
+        extract_on(lib, out)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(*groups))
+    gen = torch.Generator(device=pl.device).manual_seed(0)
+    wv = torch.rand((p, g, n), device=pl.device, generator=gen) * mask[None]
+    vals = groups[1] * (wv[..., None, None] * kai[:, None])
+
+    def accumulate_on(lib, acc):
+        _build.check(lib.lfbm5d_accumulate_groups(
+            vals.data_ptr(), wv.data_ptr(), kai.data_ptr(), bidx.data_ptr(),
+            *geo[1:], acc[0].data_ptr(), acc[1].data_ptr(), *dims),
+            "accumulate_groups")
+
+    accs = [(torch.zeros_like(pl), torch.zeros_like(pl)) for _ in range(2)]
+    for lib, acc in zip(libs, accs):
+        accumulate_on(lib, acc)
+    rel = max(_rel(accs[1][i], accs[0][i]) for i in (0, 1))
+    label = f"17x17x128x128 (k={k}, nd={nd}, A={a}, S={g * n})"
+    in_turns(f"{label} extract_groups (outputs equal {equal})", extract_on,
+             libs, groups)
+    in_turns(f"{label} accumulate_groups_fused (rel {rel:.2e})",
+             accumulate_on, libs, accs)
+    if not equal or rel > ACC_REL_MAX:
+        raise AssertionError("the parent's and this tree's two-kernel "
+                             "kernels disagree")
+
+
 def ab(parent_dir: str) -> int:
-    """--ab PARENT: the parent tree's two BM kernels (its lfbm5d_torch/csrc
-    built apart; the same C entry points) against this tree's, at (b)'s four
-    shapes, on the same inputs and preallocated outputs, in turns parent,
-    new, new, parent (5 launches each); the outputs must be equal."""
+    """--ab PARENT: the parent tree's kernels (its lfbm5d_torch/csrc built
+    apart; the same C entry points) against this tree's, on the same inputs
+    and preallocated outputs, in turns (`in_turns`): the two BM kernels at
+    (b)'s four shapes, outputs equal; extract and fused accumulate at (e)'s
+    table shape (`ab_two_kernel`)."""
     import ctypes
     from pathlib import Path
 
     import torch
 
+    from lfbm5d_torch import preset_denoise_params
     from lfbm5d_torch.kernels import _build
     from lfbm5d_torch.lf import color_matrix
     from lfbm5d_torch.ops.distances import DIST_QUANT
@@ -855,12 +1124,14 @@ def ab(parent_dir: str) -> int:
     plib = ctypes.CDLL(str(_build.build(Path(parent_dir) / "lfbm5d_torch"
                                         / "csrc")))
     print_ptxas(_build.build_log, "parent")
-    for name in ("lfbm5d_self_distances", "lfbm5d_cross_argmin"):
+    for name in ("lfbm5d_self_distances", "lfbm5d_cross_argmin",
+                 "lfbm5d_extract_groups", "lfbm5d_accumulate_groups"):
         getattr(plib, name).argtypes = _build._SIGNATURES[name]
+    libs = (plib, lib)
     dev = torch.device("cuda:0")
     m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
-    cases = bm_cases(lf_on_card(9, 434, 625, 1)[0] @ m.T,
-                     lf_on_card(17, 128, 128, 100)[0] @ m.T)
+    x17 = lf_on_card(17, 128, 128, 100)[0] @ m.T
+    cases = bm_cases(lf_on_card(9, 434, 625, 1)[0] @ m.T, x17)
     for label, ctx in cases:
         sp, match0 = ctx["sp"], ctx["match0"]
         k, n, nd = sp.k, sp.n_search, sp.n_disp
@@ -888,21 +1159,17 @@ def ab(parent_dir: str) -> int:
 
         for name, fn, outs in (("self_distances", self_on, dk),
                                ("cross_argmin", cross_on, bk)):
-            fn(plib, outs[0])
-            fn(lib, outs[1])
+            for L, o in zip(libs, outs):
+                fn(L, o)
             torch.cuda.synchronize()
             equal = bool(torch.equal(outs[0], outs[1]))
-            ms = [cuda_ms(lambda L=L, o=o: fn(L, o))
-                  for L, o in ((plib, outs[0]), (lib, outs[1]),
-                               (lib, outs[1]), (plib, outs[0]))]
-            p_ms, n_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-            print(f"ab {label} {name} (k={k}, n={n}, nd={nd}, A={a}): parent "
-                  f"{ms[0]:.4f} / {ms[3]:.4f} ms, new {ms[1]:.4f} / "
-                  f"{ms[2]:.4f} ms, parent/new {p_ms / n_ms:.2f}x; outputs "
-                  f"equal {equal}")
+            in_turns(f"{label} {name} (k={k}, n={n}, nd={nd}, A={a}; "
+                     f"outputs equal {equal})", fn, libs, outs)
             if not equal:
                 raise AssertionError(f"{name} ({label}): the parent's and "
                                      f"this tree's outputs differ")
+    ab_two_kernel(libs, preset_denoise_params("matched", 25.0, chunk=128),
+                  x17, _sigma(dev))
     return 0
 
 
@@ -1033,6 +1300,7 @@ def main(argv) -> int:
         print_ptxas(_build.build_log, "(a)")
         plan_table(lib)
         bm_plan_table(lib)
+        twokernel_plan_table(lib)
 
         phase = "(b)"
         params = preset_denoise_params("matched", 25.0, chunk=128)
@@ -1135,7 +1403,14 @@ def main(argv) -> int:
             max_abs_err=max(r[0] for r in checks),
             ms=sum(r[1] for r in checks), plain_ms=sum(r[2] for r in checks),
             bound_ms=sum(r[3] for r in checks), bound_by=checks[0][4])
-        rows.update(two_kernel_checks(params, xm, sig, dev))
+        rows.update(two_kernel_checks(params, xm, sig))
+        t0 = time.perf_counter()
+        big, big_clean = lf_on_card(17, 512, 512, 100)
+        print(f"(e) 17x17x512x512 RGB made in {time.perf_counter() - t0:.1f} "
+              f"s (host)")
+        two_kernel_shapes(params, x17, big @ m.T, sig)
+        edge_checks(params, small, small_basic, sig, lib)
+        second_card(params)
 
         phase = "(f)"
         banked_path = bm_path + ["fused_group_step_banked"]
@@ -1162,10 +1437,6 @@ def main(argv) -> int:
         del mid, mid_clean, xm, x17
 
         phase = "(g)"
-        t0 = time.perf_counter()
-        big, big_clean = lf_on_card(17, 512, 512, 100)
-        print(f"(g) 17x17x512x512 RGB made in {time.perf_counter() - t0:.1f} "
-              f"s (host)")
         torch.cuda.reset_peak_memory_stats()
         ((bb, fb), dt), _ = drive("(g)", kernels, banked_path,
                                   lambda: timed_run(big, params))

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "lfbm5d_group_occupancy_banked": [_I] * 4 + [_P],
     "lfbm5d_group_step": [_P] * 12 + [_I] * 13 + [_F, _P],
     "lfbm5d_group_step_banked": [_P] * 12 + [_I] * 13 + [_F, _P],
+    "lfbm5d_twokernel_plan": [_I, _I, _P],
     "lfbm5d_extract_groups": [_P] * 7 + [_I] * 10 + [_P],
     "lfbm5d_accumulate_groups": [_P] * 10 + [_I] * 10 + [_P],
     "lfbm5d_gather_rows": [_P] * 3 + [_I] * 2 + [_P],

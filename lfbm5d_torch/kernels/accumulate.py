@@ -14,9 +14,11 @@ per-lane placement mux). Contract, the inverse of `kernels.extract`:
 Both in place; masked slots add nothing. The den is direct, as the
 reference's two-kernel path has it (its deferred den belongs to the fused
 kernels). One kernel serves both forms (without den: a template flag). It
-adds by f32 atomics in no fixed order, so it agrees with the plain versions
-to f32 rounding (relative 1e-5). What bounds it on the card: the atomics in
-L2, one per value (two with den). `launches` counts kernel launches.
+adds by f32 reductions in no fixed order, so it agrees with the plain
+versions to f32 rounding (relative 1e-5). What bounds it on the card: the
+reductions in L2, about one request per 32-byte sector a warp touches (the
+csrc/twokernel.cu header); its launch plan is
+`kernels.extract.twokernel_plan`. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -74,14 +76,15 @@ def _launch(vals, wv, kaiser, bidx, sim_y, sim_x, mask, ref, num, den, k,
             raise ValueError(f"{what}: inconsistent den, wv or kaiser shape")
     if g == 0:
         return False
-    rc = library().lfbm5d_accumulate_groups(
-        vals.data_ptr(), None if den is None else wv.data_ptr(),
-        None if den is None else kaiser.data_ptr(), bidx.data_ptr(),
-        None if doff is None else doff.data_ptr(), sim_y.data_ptr(),
-        sim_x.data_ptr(), mask.data_ptr(), num.data_ptr(),
-        None if den is None else den.data_ptr(), g * n, p, a, hp, wp,
-        hp - k + 1, wp - k + 1, k, nd, ref, stream_of(vals),
-    )
+    with torch.cuda.device(dev):
+        rc = library().lfbm5d_accumulate_groups(
+            vals.data_ptr(), None if den is None else wv.data_ptr(),
+            None if den is None else kaiser.data_ptr(), bidx.data_ptr(),
+            None if doff is None else doff.data_ptr(), sim_y.data_ptr(),
+            sim_x.data_ptr(), mask.data_ptr(), num.data_ptr(),
+            None if den is None else den.data_ptr(), g * n, p, a, hp, wp,
+            hp - k + 1, wp - k + 1, k, nd, ref, stream_of(vals),
+        )
     check(rc, what)
     return True
 

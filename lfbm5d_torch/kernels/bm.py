@@ -130,11 +130,12 @@ def self_distances_kernel(plane: torch.Tensor, ys, xs, k: int,
     nsel = 2 * n + 1
     out = torch.empty((len(ys_d) * len(xs_d), nsel * nsel),
                       dtype=torch.int32, device=plane.device)
-    rc = library().lfbm5d_self_distances(
-        plane.data_ptr(), ys_d.data_ptr(), xs_d.data_ptr(), out.data_ptr(),
-        hp, wp, len(ys_d), len(xs_d), k, n, DIST_QUANT / (k * k),
-        stream_of(plane),
-    )
+    with torch.cuda.device(plane.device):
+        rc = library().lfbm5d_self_distances(
+            plane.data_ptr(), ys_d.data_ptr(), xs_d.data_ptr(),
+            out.data_ptr(), hp, wp, len(ys_d), len(xs_d), k, n,
+            DIST_QUANT / (k * k), stream_of(plane),
+        )
     check(rc, "self_distances_kernel")
     self_distances_kernel.launches += 1
     return out
@@ -162,10 +163,11 @@ def cross_argmin_all_kernel(ref_plane: torch.Tensor, planes: torch.Tensor,
                          f"planes {tuple(planes.shape)}")
     out = torch.empty((a, hp - k + 1, wp - k + 1), dtype=torch.int32,
                       device=planes.device)
-    rc = library().lfbm5d_cross_argmin(
-        ref_plane.data_ptr(), planes.data_ptr(), out.data_ptr(), a, hp, wp, k,
-        nd, DIST_QUANT / (k * k), stream_of(planes),
-    )
+    with torch.cuda.device(planes.device):
+        rc = library().lfbm5d_cross_argmin(
+            ref_plane.data_ptr(), planes.data_ptr(), out.data_ptr(), a, hp,
+            wp, k, nd, DIST_QUANT / (k * k), stream_of(planes),
+        )
     check(rc, "cross_argmin_all_kernel")
     cross_argmin_all_kernel.launches += 1
     return out

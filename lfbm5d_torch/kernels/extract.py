@@ -18,7 +18,10 @@ with (dy, dx) the displacement of bidx[a, sim_y, sim_x], or of doff[g, n, a]
 when it is given (of the centre for a == ref); masked slots are zeros. A
 pure gather: the kernel is bit-equal to the plain version. What bounds it
 on the card: the bytes of the group tensor it writes (csrc/twokernel.cu
-header). `launches` counts kernel launches.
+header). `twokernel_plan` is the launch plan of this kernel and of the
+accumulate kernel (tests/test_torch_twokernel_tiling.py emulates the
+decomposition it describes; chip_smoke.py (a) holds it to the library's).
+`launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -26,8 +29,27 @@ from __future__ import annotations
 import torch
 
 from lfbm5d_torch.kernels._build import check, library, require, stream_of
+from lfbm5d_torch.kernels.fused import SMEM_PER_SM, SMEM_RESERVED
 from lfbm5d_torch.kernels.gather import slot_doff
 from lfbm5d_torch.ops.distances import center_index, displacements
+
+TK_BLOCKS_PER_SM = 4  # resident blocks per SM the shared stage leaves room for
+
+
+def twokernel_plan(k: int, a: int) -> tuple[int, int, int, int]:
+    """(patch rows per chunk, SAIs per tile, stage pitch in floats, dynamic
+    shared bytes) of the extract and accumulate kernels at patch size k and
+    A = a SAIs: a copy of csrc/twokernel.cu::make_plan. A block owns one
+    (slot, plane) run [k*k, A] of the group tensor and moves it through a
+    shared stage [rows*k][pitch] (pitch = tile | 1), chunk by chunk of whole
+    patch rows, beside a base table (8 bytes per SAI) and the Kaiser window;
+    the budget keeps TK_BLOCKS_PER_SM blocks on an SM. The SAI axis is tiled
+    only where one patch row of every SAI does not fit."""
+    limit = SMEM_PER_SM // TK_BLOCKS_PER_SM - SMEM_RESERVED
+    tile = min(a, (limit - 4 * k * k - 4 * k) // (8 + 4 * k))
+    pitch = tile | 1
+    rows = min(k, (limit - 8 * tile - 4 * k * k) // (4 * k * pitch))
+    return rows, tile, pitch, 8 * tile + 4 * k * k + 4 * rows * k * pitch
 
 
 def patch_coords(bidx, sim_y, sim_x, ref: int, k: int, nd: int, doff=None):
@@ -90,12 +112,13 @@ def extract_groups(planes, bidx, sim_y, sim_x, mask, ref: int, *, k: int,
                       device=planes.device)
     if g == 0:
         return out
-    rc = library().lfbm5d_extract_groups(
-        planes.data_ptr(), bidx.data_ptr(),
-        None if doff is None else doff.data_ptr(), sim_y.data_ptr(),
-        sim_x.data_ptr(), mask.data_ptr(), out.data_ptr(), g * n, p, a, hp,
-        wp, hp - k + 1, wp - k + 1, k, nd, ref, stream_of(planes),
-    )
+    with torch.cuda.device(planes.device):
+        rc = library().lfbm5d_extract_groups(
+            planes.data_ptr(), bidx.data_ptr(),
+            None if doff is None else doff.data_ptr(), sim_y.data_ptr(),
+            sim_x.data_ptr(), mask.data_ptr(), out.data_ptr(), g * n, p, a,
+            hp, wp, hp - k + 1, wp - k + 1, k, nd, ref, stream_of(planes),
+        )
     check(rc, "extract_groups")
     extract_groups.launches += 1
     return out

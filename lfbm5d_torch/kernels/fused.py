@@ -300,12 +300,13 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
         )
     if t == 0:
         return
-    rc = library().lfbm5d_group_step(
-        *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                   sigma_c, tables, num, wden, wiener),
-        t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref,
-        int(wiener), float(lambda_3d), stream_of(noisy),
-    )
+    with torch.cuda.device(noisy.device):  # launch_groups' host calls too
+        rc = library().lfbm5d_group_step(
+            *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
+                       sigma_c, tables, num, wden, wiener),
+            t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd,
+            ref, int(wiener), float(lambda_3d), stream_of(noisy),
+        )
     if rc:
         check(rc, _launch_what("fused_group_step", n_sim, a_h, a_w, wiener))
     fused_group_step.launches += 1
@@ -336,12 +337,13 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
             f"{a_h}x{a_w}")
     if t == 0:
         return
-    rc = library().lfbm5d_group_step_banked(
-        *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                   sigma_c, tables, num, wden, wiener),
-        t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd, ref,
-        int(wiener), float(lambda_3d), stream_of(noisy),
-    )
+    with torch.cuda.device(noisy.device):  # launch_groups' host calls too
+        rc = library().lfbm5d_group_step_banked(
+            *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
+                       sigma_c, tables, num, wden, wiener),
+            t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd,
+            ref, int(wiener), float(lambda_3d), stream_of(noisy),
+        )
     if rc:
         check(rc, _launch_what("fused_group_step_banked", n_sim, a_h, a_w,
                                wiener))

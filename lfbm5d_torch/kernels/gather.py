@@ -67,8 +67,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((s, w), dtype=table.dtype, device=table.device)
     if s == 0 or w == 0:
         return out
-    rc = library().lfbm5d_gather_rows(table.data_ptr(), idx.data_ptr(),
-                                      out.data_ptr(), s, w, stream_of(table))
+    with torch.cuda.device(table.device):
+        rc = library().lfbm5d_gather_rows(table.data_ptr(), idx.data_ptr(),
+                                          out.data_ptr(), s, w,
+                                          stream_of(table))
     check(rc, "gather_rows")
     gather_rows.launches += 1
     return out

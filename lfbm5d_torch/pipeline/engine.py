@@ -15,7 +15,8 @@ The route is fixed once per step, from shapes and parameters alone
   fused       the group kernel with the group in shared memory
               (kernels/fused.py::fused_group_step): k = 8, no use_sd,
               N <= 16, aH, aW <= 16 and group_smem_bytes <= 232,448;
-  banked      the same stage with the group in device memory
+  banked      the same stage for the larger groups, each spread over the
+              shared memory of a thread-block cluster
               (fused_group_step_banked): otherwise k = 8, no use_sd,
               N <= 16, A <= 384, aH, aW <= 19;
   two_kernel  everything else, or fused=False: chunks of groups through

@@ -337,3 +337,89 @@ def test_wrappers_raise_off_cpu_without_cuda():
         fused_group_step_banked(meta, None, meta, i32, i32, i32, i32, 0, meta,
                                 tables, meta, meta, k=8, nd=1, lambda_3d=2.7,
                                 wiener=False)
+
+
+def test_wrappers_launch_on_their_tensors_device(monkeypatch):
+    """Every kernel wrapper makes its library call (the launch and, for the
+    group kernels, launch_groups' host calls) inside
+    torch.cuda.device(<its tensors' device>), not on whatever device is
+    current. Meta tensors stand in for CUDA ones; the library records the
+    device entered at each call."""
+    from lfbm5d_torch.kernels import accumulate, bm, extract, fused, gather
+    from lfbm5d_torch.kernels.fused import (
+        GroupTables, fused_group_step, fused_group_step_banked,
+    )
+
+    entered, calls = [], []
+
+    class Device:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            entered.append(self.dev)
+
+        def __exit__(self, *exc):
+            entered.pop()
+
+    class Library:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, entered[-1] if entered else None))
+                return 0
+            return call
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    wrappers = (bm.self_distances_kernel, bm.cross_argmin_all_kernel,
+                fused_group_step, fused_group_step_banked,
+                extract.extract_groups, accumulate.accumulate_groups_fused,
+                accumulate.accumulate_groups, gather.gather_rows)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
+    for mod in (bm, extract, accumulate, fused, gather):
+        monkeypatch.setattr(mod, "library", Library)
+        monkeypatch.setattr(mod, "stream_of", lambda t: None)
+        monkeypatch.setattr(mod, "require", lambda *a, **kw: None)
+
+    dev = torch.device("meta")
+    f32, i32 = torch.float32, torch.int32
+    k, nd, a, hp, wp, g, n = 8, 1, 9, 24, 24, 2, 4
+
+    def t(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    planes, bidx = t(3, a, hp, wp), t(a, hp - k + 1, wp - k + 1, dtype=i32)
+    sy, sx = t(g, n, dtype=i32), t(g, n, dtype=i32)
+    mask = t(g, n, dtype=torch.bool)
+    vals, wv = t(3, g, n, k * k, a), t(3, g, n)
+    tables = GroupTables.build(tcfg.preset_step_params("matched", 2500.0),
+                               3, 3, device=dev)
+    lvl, sig = t(g, dtype=i32), t(3)
+    group_args = (planes, None, bidx, sy, sx, lvl, mask, 0, sig, tables,
+                  t(3, a, hp, wp), t(3, a, hp, wp))
+    group_kw = dict(k=k, nd=nd, lambda_3d=2.7, wiener=False)
+    launches = [
+        ("lfbm5d_self_distances", lambda: bm.self_distances_kernel(
+            planes[0, 0], [0, 8], [0, 8], k, 4)),
+        ("lfbm5d_cross_argmin", lambda: bm.cross_argmin_all_kernel(
+            planes[0, 0], planes[0], k, nd)),
+        ("lfbm5d_group_step",
+         lambda: fused_group_step(*group_args, **group_kw)),
+        ("lfbm5d_group_step_banked",
+         lambda: fused_group_step_banked(*group_args, **group_kw)),
+        ("lfbm5d_extract_groups", lambda: extract.extract_groups(
+            planes, bidx, sy, sx, mask, 0, k=k, nd=nd)),
+        ("lfbm5d_accumulate_groups", lambda: accumulate.accumulate_groups(
+            vals, bidx, sy, sx, mask, 0, planes, k=k, nd=nd)),
+        ("lfbm5d_accumulate_groups",
+         lambda: accumulate.accumulate_groups_fused(
+             vals, wv, t(k * k), bidx, sy, sx, mask, 0, planes,
+             t(3, a, hp, wp), k=k, nd=nd)),
+        ("lfbm5d_gather_rows", lambda: gather.gather_rows(
+            t(50, a, dtype=i32), t(g * n, dtype=i32))),
+    ]
+    for name, launch in launches:
+        launch()
+        assert calls[-1] == (name, dev), name
+        assert not entered
+    assert [w.launches for w in wrappers] == [1] * len(wrappers)
