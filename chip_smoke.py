@@ -6,9 +6,10 @@ Usage (from the repository root, one CUDA card):
     python chip_smoke.py                    the phases below
     python chip_smoke.py --ab PARENT        the kernels of a parent checkout
         (PARENT, its lfbm5d_torch/csrc built apart) against this tree's, in
-        turns: the two BM kernels at (b)'s four shapes (outputs equal), and
+        turns: the two BM kernels at (b)'s four shapes (outputs equal),
         extract / fused accumulate at (e)'s table shape (extract equal,
-        accumulate within 1e-5; see `ab`)
+        accumulate within 1e-5), and the row gather at (j)'s flagship shape
+        (outputs equal, index_select beside them; see `ab`)
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
@@ -25,7 +26,9 @@ Phases; any failure exits non-zero without the final "ok" line:
       equal to the library's; the BM plans (kernels/bm.py::bm_plan,
       self_plan) equal to the library's at every BM shape the phases launch;
       the extract/accumulate plan (kernels/extract.py::twokernel_plan) equal
-      to the library's at every two-kernel shape the phases launch;
+      to the library's at every two-kernel shape the phases launch; the row
+      gather's plan (kernels/gather.py::gather_plan) equal to the library's
+      at every gather shape the phases launch;
   (b) block-matching kernels vs their plain versions at reference SAI 0,
       exactly equal (mismatch 0), with kernel ms, plain ms and the bound, at
       four shapes: the flagship (9x9x434x625 RGB) as `matched` (n=16, nd=1,
@@ -72,11 +75,15 @@ Phases; any failure exits non-zero without the final "ok" line:
       final PSNR >= the reference's record less 0.05 dB (default 28.416,
       robust 28.552) and s/LF under a ceiling that keeps the script inside
       its time limit;
-  (j) gather_rows vs its plain version at the flagship's shapes: the
-      [V0*V1, 81] int32 table of reference SAI 0's argmin maps, gathered at
-      its T*N slots; exactly equal; the kernel and index_select in turns
-      over 21 rounds, each launch on a cold L2 (median, min, max), and the
-      plain version's time;
+  (j) gather_rows exactly equal to its plain version at the flagship's
+      `dma` shape (the [V0*V1, 81] int32 table of reference SAI 0's argmin
+      maps, gathered at its T*N slots), at 17x17x128x128's (W = 289) and at
+      ragged shapes (float32, W = 1 and 7, S = 1, S not a multiple of the
+      plan's tile); at the flagship the kernel and index_select in turns
+      over 21 rounds, each on a cold L2 with the host's submission kept out
+      of the timed window (`cuda_ms_cold`: median, min, max), and each
+      function's host time per call over 300 calls; the plain version's
+      time;
   (k) the flagship matched denoise with doff_mode "take" and "dma" (one
       warm run, then one timed run each, then (d)'s "direct" again): final
       PSNR within 0.01 dB of (d)'s and >= 28.37 dB; the "dma" run launches
@@ -92,7 +99,18 @@ Phases; any failure exits non-zero without the final "ok" line:
       adaptive_denoise_params on the occl-grad family (bench.py's
       definition, 9x9x434x625, noise seed 1) selects `robust`, and its one
       timed run_bm5d reaches final PSNR >= 29.83 dB (the reference's record
-      29.88 less 0.05).
+      29.88 less 0.05);
+  (n) denoise_batch over three flagship LFs (9x9x434x625 RGB, matched,
+      noise seeds 1-3; a batch tensor on cuda:0, LF i on card i % count):
+      s/LF, peak memory; each final PSNR >= 28.37 dB and within 0.01 dB of
+      run_bm5d on the same LF;
+  (o) the same three LFs written as PNG SAIs under build/, streamed disk to
+      disk by stream_denoise_dirs (decode ahead, encode behind): s/LF,
+      seconds_device / seconds_total, the codec that ran; the PNGs read
+      back reach final PSNR >= 28.37 dB; then `python -m lfbm5d_torch.cli
+      denoise --preset matched --json` on the first of them in a
+      subprocess, its PNGs >= 28.37 dB. Where no PNG codec exists, one line
+      names what is missing and the disk part does not run.
 Then the card's name and power limit, a {"kernels": [...]} line (launches
 from the path each kernel serves; ms and plain_ms at that path's shapes,
 the BM rows at the matched flagship;
@@ -102,10 +120,13 @@ bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
 """
 
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -122,7 +143,19 @@ DOFF_PSNR_DELTA_MAX = 0.01  # (k): take/dma vs direct, final PSNR
 SR_PSNR_MIN = 31.549  # recorded 31.599 dB (flagship x2 SR, matched) less 0.05
 SR_OVER_BICUBIC_MIN = 1.5  # dB; bicubic recorded 29.853 dB
 ROUTED_PSNR_MIN = 29.83  # recorded 29.88 dB (occl-grad, routed) less 0.05
-GATHER_ROUNDS = 21  # (j): alternating cold-L2 rounds, kernel vs library
+BATCH_NOISE_SEEDS = (1, 2, 3)  # (n), (o): three flagship LFs
+BATCH_PSNR_DELTA_MAX = 0.01  # (n): batch vs run_bm5d on the same LF, dB
+REPO = os.path.dirname(os.path.abspath(__file__))
+GATHER_ROUNDS = 21  # (j), --ab: alternating cold-L2 rounds per function
+GATHER_HOST_CALLS = 300  # (j): calls timed back to back on the host's clock
+# cold-L2 windows: the spin queued before the start event (device clock
+# cycles, about 1 ms at the H100's clocks), which must outlast the host's
+# submission of the start event and the timed call
+SLEEP_CYCLES = 2_000_000
+# (j) ragged gathers: (V, W, S, dtype name), each exact against plain
+GATHER_RAGGED = ((1000, 7, 1031, "float32"), (1000, 1, 1, "float32"),
+                 (500, 1, 4099, "int32"), (300, 7, 1, "int32"),
+                 (300, 289, 13, "float32"))
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 
@@ -223,24 +256,80 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+_SPIN_MS = []  # device ms of one torch.cuda._sleep(SLEEP_CYCLES)
+
+
+def spin_ms() -> float:
+    """Device time of the spin that cuda_ms_cold queues (measured once)."""
+    import torch
+
+    if not _SPIN_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)  # first call: clocks up
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_MS.append(start.elapsed_time(end))
+    return _SPIN_MS[0]
+
+
 def cuda_ms_cold(fn, reps: int = 5) -> float:
     """Mean device time of fn with the L2 flushed before each launch (a
-    128 MB write between the timed intervals)."""
+    128 MB write between the timed intervals). A spin (torch.cuda._sleep)
+    queued after the flush and before the start event keeps the device busy
+    while the host records the start event and submits fn, so the window
+    holds device work only, not the host's path to the launch; raises if
+    that submission outlasted the spin."""
     import torch
 
     flush = torch.empty(1 << 25, dtype=torch.float32, device="cuda:0")
+    cover = spin_ms()
     fn()
     total = 0.0
     for _ in range(reps):
         flush.fill_(1.0)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
+        host = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
+        if host >= cover:
+            raise AssertionError(f"cuda_ms_cold: host submission {host:.3f} "
+                                 f"ms outlasted the {cover:.3f} ms spin")
         total += start.elapsed_time(end)
     return total / reps
+
+
+def host_us(fn, calls: int = GATHER_HOST_CALLS) -> float:
+    """Host time per call of fn, over `calls` calls with no synchronisation
+    between them (the device catches up after the clock stops)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def cold_rounds(fns, rounds: int = GATHER_ROUNDS):
+    """Each of fns once per round on a cold L2 (cuda_ms_cold), the order
+    rotating from round to round: (median, min, max) ms per function."""
+    times = [[] for _ in fns]
+    for i in range(rounds):
+        for j in range(len(fns)):
+            j = (j + i) % len(fns)
+            times[j].append(cuda_ms_cold(fns[j], reps=1))
+    return [(statistics.median(t), min(t), max(t)) for t in times]
 
 
 def lf_on_card(a, h, w, noise_seed, dev="cuda:0"):
@@ -464,6 +553,41 @@ def twokernel_plan_table(lib) -> None:
         print(f"(a) twokernel_plan k={k}, A={a}: {out[0]} patch rows per "
               f"chunk, {out[1]} SAIs per tile, pitch {out[2]}, {out[3]} B "
               f"shared")
+
+
+def gather_shapes(params):
+    """(S, W) of every gather_rows launch of the phases: the `dma` slot rows
+    of one reference SAI (T reference patches x N slots, W = A) at the
+    flagship (9x9x434x625) and at 17x17x128x128, then GATHER_RAGGED's."""
+    from lfbm5d_torch.lf.pad import ind_initialize
+
+    sp = params.ht
+    out = []
+    for a, h, w in ((9, 434, 625), (17, 128, 128)):
+        t = len(ind_initialize(h, sp.k, sp.p)) * len(
+            ind_initialize(w, sp.k, sp.p))
+        out.append((t * sp.n_sim, a * a))
+    return out + [(n, w) for _, w, n, _ in GATHER_RAGGED]
+
+
+def gather_plan_table(lib, params) -> None:
+    """(a): the row gather's plan (slots per block, threads, grid) at every
+    shape the phases launch, Python copy (kernels/gather.py::gather_plan)
+    == library."""
+    import ctypes
+
+    from lfbm5d_torch.kernels._build import check
+    from lfbm5d_torch.kernels.gather import gather_plan
+
+    for n, w in gather_shapes(params):
+        out = (ctypes.c_int * 3)()
+        check(lib.lfbm5d_gather_plan(n, w, out), "lfbm5d_gather_plan")
+        if tuple(out) != gather_plan(n, w):
+            raise AssertionError(f"gather_plan({n}, {w}): library "
+                                 f"{tuple(out)} vs Python "
+                                 f"{gather_plan(n, w)}")
+        print(f"(a) gather_plan S={n}, W={w}: {out[0]} slots per block, "
+              f"{out[1]} threads, grid {out[2]}")
 
 
 def group_flops(lvl, mask, c, a_h, a_w, wiener) -> float:
@@ -856,58 +980,95 @@ def second_card(params):
         raise AssertionError("a wrapper left cuda:1 current")
 
 
-def phase_gather(params, noisy, m, sigma_c):
-    """(j): gather_rows vs plain at the flagship's shapes, on the table and
-    slot rows the `dma` mode builds for reference SAI 0; its kernels row."""
-    import torch
-
-    from lfbm5d_torch.kernels.gather import gather_rows, gather_rows_plain
+def gather_case(params, x, sigma_c):
+    """The `dma` mode's row gather at reference SAI 0 of x (OPP, on the
+    card): (step, bidx, sim_y, sim_x, table [V0*V1, A] int32, rows [T*N])."""
     from lfbm5d_torch.pipeline.denoise import _flat_pad
     from lfbm5d_torch.pipeline.engine import build_kernel_step
 
     sp = params.ht
-    x = noisy @ m.T
     a_h, a_w, h, w, c = x.shape
     step = build_kernel_step(sp, params.lambda_3d, a_h, a_w, h, w, c, False,
                              "float32", str(x.device), None, "dma")
     xp = _flat_pad(x, sp.pad)
     pl = xp.permute(3, 0, 1, 2).contiguous()
-    r = step.refs[0]
     sim_y, sim_x, _, _, bidx = step.block_match(
-        xp[..., 0].contiguous(), r, step.flat_mask(pl, sigma_c))
+        xp[..., 0].contiguous(), step.refs[0], step.flat_mask(pl, sigma_c))
     a, _, v1 = bidx.shape
-    table = bidx.view(a, -1).t().contiguous()  # [V0*V1, A]
-    rows = (sim_y * v1 + sim_x).view(-1)
+    table = bidx.view(a, -1).t().contiguous()
+    return step, bidx, sim_y, sim_x, table, (sim_y * v1 + sim_x).view(-1)
+
+
+def phase_gather(params, x, x17, sigma_c):
+    """(j): gather_rows exactly equal to its plain version at the flagship's
+    `dma` shape, at 17x17x128x128's (W = 289) and at GATHER_RAGGED's; at the
+    flagship the kernel and index_select timed in turns on a cold L2
+    (device time, the host's submission outside the window) and on the
+    host's clock (per call); the kernels row."""
+    import torch
+
+    from lfbm5d_torch.kernels.gather import gather_rows, gather_rows_plain
+
+    shapes = set(gather_shapes(params))
+    step, bidx, sim_y, sim_x, table, rows = gather_case(params, x, sigma_c)
     out = gather_rows(table, rows)
     exact = bool(torch.equal(out, gather_rows_plain(table, rows)))
-    same = bool(torch.equal(out.view(*sim_y.shape, a),
+    same = bool(torch.equal(out.view(*sim_y.shape, bidx.shape[0]),
                             step.slot_table(bidx, sim_y, sim_x)))
-    pms = cuda_ms_cold(lambda: gather_rows_plain(table, rows))
+    launched = [(rows.numel(), table.shape[1])]
     rows_l = rows.long()  # index_select's index type, converted untimed
-    # the kernel and index_select in turns (kernel, library, library,
-    # kernel, ...), each launch on a cold L2: medians and ranges
-    pair = (lambda: gather_rows(table, rows),
-            lambda: table.index_select(0, rows_l))
-    times = ([], [])
-    for i in range(GATHER_ROUNDS):
-        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
-            times[j].append(cuda_ms_cold(pair[j], reps=1))
-    (ms, lo, hi), (lib, llo, lhi) = (
-        (statistics.median(t), min(t), max(t)) for t in times)
-    warm = cuda_ms(lambda: gather_rows(table, rows))
+    # yardstick: one device-to-device copy of the output's size (reads and
+    # writes about the bytes the gather must move)
+    src, dst = torch.ones_like(out), torch.empty_like(out)
+    fns = (lambda: gather_rows(table, rows),
+           lambda: table.index_select(0, rows_l), lambda: dst.copy_(src))
+    (ms, lo, hi), (lib, llo, lhi), (cp, clo, chi) = cold_rounds(fns)
+    k_us, l_us = host_us(fns[0]), host_us(fns[1])
+    pms = cuda_ms_cold(lambda: gather_rows_plain(table, rows))
+    warm = cuda_ms(fns[0])
     # bytes the function must move: the indices, each distinct row of the
     # table once, and the output
     need = int(torch.unique(rows).numel()) * table.shape[1] * 4
     bms, by = bound(nbytes(rows, out) + need, 0)
     print(f"(j) gather_rows table {tuple(table.shape)} int32 "
           f"({nbytes(table) / 1e6:.1f} MB), {rows.numel()} rows: exact "
-          f"{exact}, equal to the step's slot_table {same}; cold L2 over "
-          f"{GATHER_ROUNDS} alternating rounds: kernel median {ms:.4f} ms "
-          f"(min {lo:.4f}, max {hi:.4f}), index_select median {lib:.4f} ms "
-          f"(min {llo:.4f}, max {lhi:.4f}); plain {pms:.4f} ms; kernel warm "
-          f"{warm:.4f} ms; bound {bms:.4f} ms ({by})")
+          f"{exact}, equal to the step's slot_table {same}")
+    print(f"(j) device time, cold L2, {GATHER_ROUNDS} rounds in turns (spin "
+          f"{spin_ms():.3f} ms before each window): kernel median {ms:.4f} "
+          f"ms (min {lo:.4f}, max {hi:.4f}), index_select median {lib:.4f} "
+          f"ms (min {llo:.4f}, max {lhi:.4f}); kernel {lib / ms:.2f}x "
+          f"index_select; a copy of the output's {nbytes(out) / 1e6:.1f} MB "
+          f"(copy_) median {cp:.4f} ms (min {clo:.4f}, max {chi:.4f}); bound "
+          f"{bms:.4f} ms ({by}), kernel at {bms / ms:.0%} of it; plain "
+          f"{pms:.4f} ms; kernel warm {warm:.4f} ms")
+    print(f"(j) host time per call ({GATHER_HOST_CALLS} calls, no "
+          f"synchronisation): kernel wrapper {k_us:.1f} us, index_select "
+          f"{l_us:.1f} us")
     if not (exact and same):
         raise AssertionError("gather_rows disagrees with its plain version")
+    # W = 289: 17x17x128x128 matched, reference SAI 0
+    _, _, _, _, t17, r17 = gather_case(params, x17, sigma_c)
+    checks = [(t17, r17, "17x17x128x128 dma")]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    for v, w, n, dt in GATHER_RAGGED:
+        tab = torch.randn((v, w), generator=gen, device=x.device)
+        if dt == "int32":
+            tab = (tab * 1e6).to(torch.int32)
+        idx = torch.randint(0, v, (n,), generator=gen, device=x.device,
+                            dtype=torch.int32)
+        checks.append((tab, idx, f"{dt} V={v}"))
+    for tab, idx, label in checks:
+        got = gather_rows(tab, idx)
+        ok = bool(torch.equal(got, gather_rows_plain(tab, idx)))
+        launched.append((idx.numel(), tab.shape[1]))
+        print(f"(j) gather_rows {label}, S={idx.numel()}, W={tab.shape[1]}: "
+              f"exact {ok}")
+        if not ok:
+            raise AssertionError(f"gather_rows ({label}) disagrees with its "
+                                 f"plain version")
+    if not shapes.issuperset(launched):
+        raise AssertionError(f"(a) did not check the plan of "
+                             f"{set(launched) - shapes}")
     return dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lib)
 
@@ -1023,6 +1184,157 @@ def phase_router(kernels, path, two_plane):
                              f"{ROUTED_PSNR_MIN}")
 
 
+def flagship_batch():
+    """The clean flagship two-plane LF (host float64) and its three noisy
+    copies (BATCH_NOISE_SEEDS) for (n) and (o)."""
+    from lfbm5d_torch.lf import add_noise_np, synthetic_lf
+
+    clean = synthetic_lf(9, 9, 434, 625, channels=3, disp_bg=1, disp_fg=2,
+                         seed=0)
+    return clean, [add_noise_np(clean, 25.0, seed=s)
+                   for s in BATCH_NOISE_SEEDS]
+
+
+def phase_batch(kernels, path, params, clean, noisy):
+    """(n): denoise_batch over the three flagship LFs (a batch tensor on
+    cuda:0; LF i on card i % count), each final within
+    BATCH_PSNR_DELTA_MAX of run_bm5d on the same LF and >= PSNR_FINAL_MIN."""
+    import torch
+
+    from lfbm5d_torch import denoise_batch, make_devices, psnr, run_bm5d
+
+    devices = make_devices()
+    lfs = torch.stack([torch.as_tensor(x, dtype=torch.float32)
+                       for x in noisy]).to("cuda:0")
+    ref = torch.as_tensor(clean, dtype=torch.float32, device="cuda:0")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        out = denoise_batch(lfs, params, devices=devices)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        return out, time.perf_counter() - t0
+
+    ((basics, finals), dt), _ = drive("(n)", kernels, path, run)
+    peak = torch.cuda.max_memory_allocated()
+    if (tuple(finals.shape) != tuple(lfs.shape) or finals.device != lfs.device
+            or not bool(torch.isfinite(finals).all())):
+        raise AssertionError("denoise_batch: wrong shape, device or "
+                             "non-finite values")
+    mpix = 9 * 9 * 434 * 625 / 1e6
+    print(f"(n) denoise_batch of {len(noisy)} flagship LFs (9x9x434x625 RGB,"
+          f" matched, noise seeds {BATCH_NOISE_SEEDS}) over "
+          f"{[str(d) for d in devices]}: {dt:.4f} s = {dt / len(noisy):.4f} "
+          f"s/LF = {mpix * len(noisy) / dt:.3f} Mpix/s; peak device memory "
+          f"(cuda:0) {peak / 2**30:.2f} GiB")
+    for i, seed in enumerate(BATCH_NOISE_SEEDS):
+        p_b = psnr(finals[i], ref)
+        p_s = psnr(run_bm5d(lfs[i], params)[1], ref)
+        print(f"(n) noise seed {seed}: final PSNR batch {p_b:.3f} dB, "
+              f"run_bm5d {p_s:.3f} dB (delta {p_b - p_s:+.4f})")
+        if p_b < PSNR_FINAL_MIN or abs(p_b - p_s) > BATCH_PSNR_DELTA_MAX:
+            raise AssertionError(f"denoise_batch, noise seed {seed}: final "
+                                 f"PSNR {p_b:.3f} vs run_bm5d {p_s:.3f}")
+
+
+def png_codec():
+    """The PNG codec lf.io will use here: (name, None), or (None, what is
+    missing) when no codec exists."""
+    from lfbm5d_torch import native
+
+    if native.available():
+        return "native libpng (lfbm5d_torch/native)", None
+    have = []
+    for mod in ("cv2", "PIL"):
+        try:
+            __import__(mod)
+            have.append(mod)
+        except ImportError:
+            pass
+    lines = native.unavailable_reason().splitlines()
+    why = next((ln for ln in lines if "error" in ln), lines[0])
+    if "PIL" not in have:
+        return None, f"PIL, and the native codec is unavailable ({why})"
+    return (f"{'OpenCV read, ' if 'cv2' in have else 'PIL read, '}PIL write "
+            f"(the native codec is unavailable: {why})"), None
+
+
+def phase_disk(kernels, path, params, clean, noisy):
+    """(o): the three flagship LFs written as PNG SAIs, streamed disk to
+    disk by stream_denoise_dirs, read back (final PSNR >= PSNR_FINAL_MIN);
+    then the CLI on the first of them in a subprocess."""
+    import numpy as np
+
+    from lfbm5d_torch import psnr
+    from lfbm5d_torch.lf.io import load_lf, save_lf
+    from lfbm5d_torch.pipeline.stream_io import stream_denoise_dirs
+
+    a_h, a_w = np.shape(clean)[:2]
+    codec, missing = png_codec()
+    if codec is None:
+        print(f"(o) no PNG codec on this machine: missing {missing}; the "
+              f"disk phase is not run")
+        return
+    pat = "SAI_%02d_%02d.png"
+    root = tempfile.mkdtemp(prefix="smoke_o_", dir=os.path.join(REPO,
+                                                                "build"))
+    try:
+        t0 = time.perf_counter()
+        jobs = []
+        for seed, lf in zip(BATCH_NOISE_SEEDS, noisy):
+            d = os.path.join(root, f"noisy_{seed}")
+            save_lf(lf, d, pat)
+            jobs.append((d, os.path.join(root, f"final_{seed}")))
+        print(f"(o) PNG codec: {codec}; 3 noisy flagship LFs written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        report, _ = drive("(o)", kernels, path,
+                          lambda: stream_denoise_dirs(jobs, params, a_h, a_w))
+        n = len(jobs)
+        print(f"(o) stream_denoise_dirs: {report.n_done} done, "
+              f"{report.n_failed} failed; {report.seconds_total:.3f} s = "
+              f"{report.seconds_total / n:.4f} s/LF; seconds_device / "
+              f"seconds_total {report.seconds_device:.3f} / "
+              f"{report.seconds_total:.3f} = "
+              f"{report.seconds_device / report.seconds_total:.3f}; per LF "
+              f"{[round(s, 3) for s in report.lf_seconds]}")
+        if report.n_done != n or report.n_failed:
+            raise AssertionError(f"stream_denoise_dirs: {report.failures}")
+        for seed, (_, out) in zip(BATCH_NOISE_SEEDS, jobs):
+            back = load_lf(out, pat, a_h, a_w)
+            p = psnr(back, clean)
+            print(f"(o) noise seed {seed}: final PSNR of the PNGs read back "
+                  f"{p:.3f} dB")
+            if back.shape != clean.shape or p < PSNR_FINAL_MIN:
+                raise AssertionError(f"disk stream, noise seed {seed}: "
+                                     f"final PSNR {p:.3f}")
+        out = os.path.join(root, "cli")
+        cmd = [sys.executable, "-m", "lfbm5d_torch.cli", "denoise",
+               "--input", jobs[0][0], "--aheight", str(a_h), "--awidth",
+               str(a_w),
+               "--sigma", "25", "--preset", "matched", "--output", out,
+               "--json"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode:
+            raise AssertionError(f"the CLI failed ({res.returncode}):\n"
+                                 f"{res.stderr[-3000:]}")
+        rep = json.loads(res.stdout.strip().splitlines()[-1])
+        p = psnr(load_lf(out, pat, a_h, a_w), clean)
+        print(f"(o) python -m lfbm5d_torch.cli denoise --preset matched "
+              f"--json (subprocess, {time.perf_counter() - t0:.1f} s): "
+              f"preset {rep.get('preset_selected', 'matched')}, "
+              f"seconds_denoise {rep['seconds_denoise']}, seconds_load "
+              f"{rep['seconds_load']}, seconds_save {rep['seconds_save']}; "
+              f"final PSNR of its PNGs {p:.3f} dB")
+        if rep["shape"] != list(np.shape(clean)) or p < PSNR_FINAL_MIN:
+            raise AssertionError(f"the CLI's output: final PSNR {p:.3f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def drive(label, kernels, path, fn):
     """Run one path with every launch count zeroed just before; the counts
     just after. Fails if a kernel of the path never launched."""
@@ -1102,6 +1414,50 @@ def ab_two_kernel(libs, params, x, sigma_c):
                              "kernels disagree")
 
 
+def ab_gather(libs, params, x, sigma_c):
+    """--ab at (j)'s flagship shape: the two trees' row-gather kernels must
+    write equal outputs (and equal index_select's); the parent's kernel, this
+    tree's, index_select and a copy of the output's size timed in turns on a
+    cold L2 (cuda_ms_cold)."""
+    import torch
+
+    from lfbm5d_torch.kernels import _build
+
+    table, rows = gather_case(params, x, sigma_c)[4:]
+    n, w = rows.numel(), table.shape[1]
+    stream = _build.stream_of(table)
+    outs = [torch.empty((n, w), dtype=table.dtype, device=table.device)
+            for _ in range(2)]
+
+    def on(lib, out):
+        _build.check(lib.lfbm5d_gather_rows(table.data_ptr(), rows.data_ptr(),
+                                            out.data_ptr(), n, w, stream),
+                     "gather_rows")
+
+    rows_l = rows.long()
+    for lib, out in zip(libs, outs):
+        on(lib, out)
+    want = table.index_select(0, rows_l)
+    equal = all(bool(torch.equal(o, want)) for o in outs)
+    src, dst = torch.ones_like(want), torch.empty_like(want)
+    (p_ms, plo, phi), (n_ms, nlo, nhi), (l_ms, llo, lhi), (c_ms, clo, chi) = \
+        cold_rounds((lambda: on(libs[0], outs[0]),
+                     lambda: on(libs[1], outs[1]),
+                     lambda: table.index_select(0, rows_l),
+                     lambda: dst.copy_(src)))
+    print(f"ab gather_rows S={n}, W={w} (outputs equal {equal}), cold L2, "
+          f"{GATHER_ROUNDS} rounds in turns: parent median {p_ms:.4f} ms "
+          f"(min {plo:.4f}, max {phi:.4f}), new median {n_ms:.4f} ms (min "
+          f"{nlo:.4f}, max {nhi:.4f}), index_select median {l_ms:.4f} ms "
+          f"(min {llo:.4f}, max {lhi:.4f}), copy_ of the output's size "
+          f"median {c_ms:.4f} ms (min {clo:.4f}, max {chi:.4f}); parent/new "
+          f"{p_ms / n_ms:.2f}x, index_select/new {l_ms / n_ms:.2f}x; new "
+          f"{'no slower' if n_ms <= l_ms else 'SLOWER'} than index_select")
+    if not equal:
+        raise AssertionError("the parent's and this tree's gather_rows "
+                             "disagree")
+
+
 def ab(parent_dir: str) -> int:
     """--ab PARENT: the parent tree's kernels (its lfbm5d_torch/csrc built
     apart; the same C entry points) against this tree's, on the same inputs
@@ -1125,13 +1481,15 @@ def ab(parent_dir: str) -> int:
                                         / "csrc")))
     print_ptxas(_build.build_log, "parent")
     for name in ("lfbm5d_self_distances", "lfbm5d_cross_argmin",
-                 "lfbm5d_extract_groups", "lfbm5d_accumulate_groups"):
+                 "lfbm5d_extract_groups", "lfbm5d_accumulate_groups",
+                 "lfbm5d_gather_rows"):
         getattr(plib, name).argtypes = _build._SIGNATURES[name]
     libs = (plib, lib)
     dev = torch.device("cuda:0")
     m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
     x17 = lf_on_card(17, 128, 128, 100)[0] @ m.T
-    cases = bm_cases(lf_on_card(9, 434, 625, 1)[0] @ m.T, x17)
+    x_flag = lf_on_card(9, 434, 625, 1)[0] @ m.T
+    cases = bm_cases(x_flag, x17)
     for label, ctx in cases:
         sp, match0 = ctx["sp"], ctx["match0"]
         k, n, nd = sp.k, sp.n_search, sp.n_disp
@@ -1168,8 +1526,9 @@ def ab(parent_dir: str) -> int:
             if not equal:
                 raise AssertionError(f"{name} ({label}): the parent's and "
                                      f"this tree's outputs differ")
-    ab_two_kernel(libs, preset_denoise_params("matched", 25.0, chunk=128),
-                  x17, _sigma(dev))
+    params = preset_denoise_params("matched", 25.0, chunk=128)
+    ab_two_kernel(libs, params, x17, _sigma(dev))
+    ab_gather(libs, params, x_flag, _sigma(dev))
     return 0
 
 
@@ -1301,9 +1660,10 @@ def main(argv) -> int:
         plan_table(lib)
         bm_plan_table(lib)
         twokernel_plan_table(lib)
+        params = preset_denoise_params("matched", 25.0, chunk=128)
+        gather_plan_table(lib, params)
 
         phase = "(b)"
-        params = preset_denoise_params("matched", 25.0, chunk=128)
         noisy_dev, clean_dev = lf_on_card(9, 434, 625, 1)
         x = noisy_dev @ m.T
         mid, mid_clean = lf_on_card(17, 128, 128, 100)
@@ -1495,7 +1855,9 @@ def main(argv) -> int:
             del b_i, f_i
 
         phase = "(j)"
-        rows["gather_rows"] = phase_gather(params, noisy_dev, m, sig)
+        rows["gather_rows"] = phase_gather(
+            params, noisy_dev @ m.T, lf_on_card(17, 128, 128, 100)[0] @ m.T,
+            sig)
 
         phase = "(k)"
         launches["gather_rows"] = phase_doff(kernels, fused_path, params,
@@ -1508,6 +1870,14 @@ def main(argv) -> int:
         phase = "(m)"
         phase_router(kernels, banked_path, noisy_dev)
         del noisy_dev, clean_dev
+
+        phase = "(n)"
+        clean_np, noisy_np = flagship_batch()
+        phase_batch(kernels, fused_path, params, clean_np, noisy_np)
+
+        phase = "(o)"
+        phase_disk(kernels, fused_path, params, clean_np, noisy_np)
+        del clean_np, noisy_np
         bad = [n for n in sys.modules
                if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
         if bad:

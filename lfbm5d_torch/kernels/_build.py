@@ -38,6 +38,7 @@ _SIGNATURES = {
     "lfbm5d_twokernel_plan": [_I, _I, _P],
     "lfbm5d_extract_groups": [_P] * 7 + [_I] * 10 + [_P],
     "lfbm5d_accumulate_groups": [_P] * 10 + [_I] * 10 + [_P],
+    "lfbm5d_gather_plan": [_I, _I, _P],
     "lfbm5d_gather_rows": [_P] * 3 + [_I] * 2 + [_P],
 }
 

@@ -1,5 +1,6 @@
 from lfbm5d_torch.lf.color import channel_sigma_scales, color_matrix  # noqa: F401
-from lfbm5d_torch.lf.metrics import psnr  # noqa: F401
+from lfbm5d_torch.lf.io import fetch_rounded, load_lf, save_lf  # noqa: F401
+from lfbm5d_torch.lf.metrics import psnr, psnr_grid_device, rmse  # noqa: F401
 from lfbm5d_torch.lf.noise import add_noise_np  # noqa: F401
 from lfbm5d_torch.lf.pad import (  # noqa: F401
     ind_initialize,

@@ -17,6 +17,7 @@ class LFDenoiser:
     Example:
         den = LFDenoiser(DenoiseParams(sigma=25.0))
         basic, final = den(noisy_lf)   # on the CUDA card
+        basics, finals = den.batch(lfs, devices=make_devices())
 
     device None runs on the input tensor's device, or on the CUDA card for
     an array (raises without one; pass device="cpu" to run on the host).
@@ -40,11 +41,17 @@ class LFDenoiser:
         _, final = self(noisy_lf)
         return final.cpu().numpy()
 
-    def batch(self, lfs, mesh=None):
-        """Batched and streaming denoising: not ported yet."""
-        raise NotImplementedError(
-            "LFDenoiser.batch: batched and streaming denoising are not "
-            "ported yet (ROADMAP.md A8)")
+    def batch(self, lfs, devices=None):
+        """Denoise [B, aH, aW, H, W, C]: LF i on devices[i % len(devices)]
+        (`parallel.make_devices`; None: this denoiser's device, else the
+        batch tensor's, else the CUDA card). Returns (basic, final) batches
+        on devices[0]."""
+        from lfbm5d_torch.pipeline.streaming import denoise_batch
+
+        if devices is None and self.device is not None:
+            devices = [self.device]
+        return denoise_batch(lfs, self.params, devices=devices,
+                             dtype=self.dtype, engine=self.engine)
 
     def evaluate(self, noisy_lf, clean_lf) -> dict:
         """Denoise and report PSNRs (of outputs clipped to [0, 255])

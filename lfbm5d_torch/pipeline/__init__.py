@@ -9,5 +9,12 @@ from lfbm5d_torch.pipeline.adaptive import (  # noqa: F401
     adaptive_denoise_params,
     content_stats,
     probe_maps,
+    denoise_region_adaptive,
     select_preset,
 )
+from lfbm5d_torch.pipeline.driver import stream_directories  # noqa: F401
+from lfbm5d_torch.pipeline.stream_io import (  # noqa: F401
+    StreamReport,
+    stream_denoise_dirs,
+)
+from lfbm5d_torch.pipeline.streaming import denoise_batch  # noqa: F401

@@ -1,5 +1,6 @@
-"""Content-adaptive preset selection at the light-field level: a port of
-`lfbm5d_tpu/pipeline/adaptive.py` (lines 1-192 of it).
+"""Content-adaptive preset selection: a port of
+`lfbm5d_tpu/pipeline/adaptive.py`, at the light-field level and as the
+region composite.
 
 What the probe measures and why the thresholds sit where they do is in the
 reference module's docstring. In short: the `matched` preset loses quality
@@ -16,9 +17,13 @@ routes to `robust` at >= 0.66 and to `matched` below.
 The probe runs on the host in numpy. A tensor LF is probed through its two
 corner SAIs only, quantised to uint8 on its device (`lf.io.fetch_rounded`),
 never the whole LF; a 1x1 angular grid takes the same degenerate-input
-guard as a host array. The reference's region composite
-(`denoise_region_adaptive`) is not ported: `adaptive-region` routes at the
-light-field level (ROADMAP.md A6).
+guard as a host array.
+
+The region composite (`denoise_region_adaptive`, the CLI's
+`--preset adaptive-region`) denoises the whole LF at `matched`, re-denoises
+only a bounding crop of the probe's weak-texture blocks at `robust`, and
+feathers the crop over the matched output (the reference module explains
+the margins and the fallbacks to the LF-level route).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from lfbm5d_torch.config import DenoiseParams, preset_denoise_params
+from lfbm5d_torch.device import resolve_device
 from lfbm5d_torch.lf.io import fetch_rounded
 
 # Decision threshold on the weak-texture block fraction.
@@ -140,3 +146,131 @@ def adaptive_denoise_params(lf, sigma: float,
     """DenoiseParams chosen by the content probe, plus (name, stats)."""
     name, stats = select_preset(lf, sigma)
     return preset_denoise_params(name, sigma, **kw), name, stats
+
+
+# Boundary-effect width of the two-step pipeline: a pixel's output draws on
+# reference patches up to p-grid distance n away, whose groups span patches
+# up to n + nd further; beyond n + (n + nd) + k the crop interior is
+# context-complete. robust: n=16, nd=1, k=8 -> 41.
+REGION_MARGIN = 48
+# Crop dims round up to this multiple (a few shapes serve repeated calls).
+REGION_ROUND_TO = 32
+# Crop area fraction above which region mode degenerates to the LF level.
+REGION_FULL_ROBUST_FRAC = 0.7
+# Fewer flagged blocks than this is measurement noise, not a weak region.
+REGION_MIN_WEAK_BLOCKS = 12
+
+
+def static_region_box(flag_map: np.ndarray, h: int, w: int, block: int = 8,
+                      margin: int = REGION_MARGIN,
+                      round_to: int = REGION_ROUND_TO) -> tuple | None:
+    """Pixel bounding box (y0, y1, x0, x1) of the flagged blocks (the weak
+    map; any bool block map works), expanded by `margin` and rounded up to
+    `round_to` multiples within the frame. None if no block is flagged."""
+    ys, xs = np.nonzero(flag_map)
+    if ys.size == 0:
+        return None
+    y0 = max(int(ys.min()) * block - margin, 0)
+    y1 = min((int(ys.max()) + 1) * block + margin, h)
+    x0 = max(int(xs.min()) * block - margin, 0)
+    x1 = min((int(xs.max()) + 1) * block + margin, w)
+
+    def round_span(lo, hi, limit):
+        want = min(-((hi - lo) // -round_to) * round_to, limit)
+        grow = want - (hi - lo)
+        lo = max(lo - grow // 2, 0)
+        hi = min(lo + want, limit)
+        return hi - want, hi
+
+    y0, y1 = round_span(y0, y1, h)
+    x0, x1 = round_span(x0, x1, w)
+    return y0, y1, x0, x1
+
+
+def _feather(ch: int, cw: int, box, h: int, w: int,
+             margin: int = REGION_MARGIN) -> np.ndarray:
+    """[ch, cw] float32 composite weight: 1 in the crop interior, a linear
+    ramp to 0 at crop edges that are not image borders (those pixels lack
+    full search context in the crop and sit where matched already
+    agrees)."""
+    y0, y1, x0, x1 = box
+    m = float(margin)
+
+    def ramp(n, lo_open, hi_open):
+        d_lo = np.arange(n, dtype=np.float32) + 0.5
+        r = np.ones(n, np.float32)
+        if lo_open:
+            r = np.minimum(r, d_lo / m)
+        if hi_open:
+            r = np.minimum(r, d_lo[::-1] / m)
+        return r
+
+    wy = ramp(ch, y0 > 0, y1 < h)
+    wx = ramp(cw, x0 > 0, x1 < w)
+    return np.minimum(wy[:, None], wx[None, :])
+
+
+def denoise_region_adaptive(noisy, sigma: float, *, engine: str = "auto",
+                            dtype: str = "float32", device=None,
+                            block: int = 8, margin: int = REGION_MARGIN,
+                            round_to: int = REGION_ROUND_TO,
+                            full_robust_frac: float = REGION_FULL_ROBUST_FRAC,
+                            min_weak_blocks: int = REGION_MIN_WEAK_BLOCKS,
+                            params_matched: DenoiseParams | None = None,
+                            params_robust: DenoiseParams | None = None):
+    """Probe-localised preset mixing: `matched` where texture is reliable
+    for block matching (or flat), `robust` on the weak-texture region,
+    feather-composited.
+
+    noisy: [aH, aW, H, W, C] in [0, 255] (array or tensor); device as for
+    run_bm5d (None: the tensor's device, or the CUDA card). Returns (basic,
+    final, info) with info's route ('matched' | 'robust' | 'region'), the
+    probe stats, and, where a box was found, the crop box and its area
+    fraction. params_matched / params_robust override the two presets.
+    """
+    from lfbm5d_torch.pipeline.denoise import _dtype, run_bm5d
+
+    x = torch.as_tensor(noisy, dtype=_dtype(dtype),
+                        device=resolve_device(device, noisy))
+    h, w = int(x.shape[2]), int(x.shape[3])
+    stats, maps = probe_maps(_probe_source(x), sigma, block)
+    p_m = params_matched or preset_denoise_params("matched", sigma)
+    p_r = params_robust or preset_denoise_params("robust", sigma)
+
+    def lf_level():
+        # the LF-level router's decision, as select_preset makes it
+        if stats["weak_fraction"] >= WEAK_FRACTION_THRESHOLD:
+            return (*run_bm5d(x, p_r, dtype, engine), "robust")
+        return (*run_bm5d(x, p_m, dtype, engine), "matched")
+
+    wmap = maps["weak"]
+    box = (static_region_box(wmap, h, w, block, margin, round_to)
+           if int(wmap.sum()) >= min_weak_blocks else None)
+    if box is None:
+        basic, final, mode = lf_level()
+        return basic, final, {"mode": mode, "stats": stats}
+    y0, y1, x0, x1 = box
+    area_frac = (y1 - y0) * (x1 - x0) / float(h * w)
+    if area_frac >= full_robust_frac:
+        # the crop saves nothing: strong content with scattered weak blocks
+        # stays on matched, only weak content gets full-frame robust
+        basic, final, mode = lf_level()
+        return basic, final, {"mode": mode, "stats": stats, "box": box,
+                              "area_frac": round(area_frac, 3)}
+
+    basic_m, final_m = run_bm5d(x, p_m, dtype, engine)
+    crop = x[:, :, y0:y1, x0:x1].contiguous()
+    basic_r, final_r = run_bm5d(crop, p_r, dtype, engine)
+    wgt = torch.as_tensor(_feather(y1 - y0, x1 - x0, box, h, w, margin),
+                          dtype=x.dtype, device=x.device)[:, :, None]
+
+    def composite(full, region):
+        out = full.clone()
+        out[:, :, y0:y1, x0:x1] = (wgt * region
+                                   + (1.0 - wgt) * full[:, :, y0:y1, x0:x1])
+        return out
+
+    info = {"mode": "region", "stats": stats, "box": box,
+            "area_frac": round(area_frac, 3),
+            "crop_shape": [y1 - y0, x1 - x0]}
+    return composite(basic_m, basic_r), composite(final_m, final_r), info

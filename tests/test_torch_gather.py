@@ -151,3 +151,68 @@ def test_doff_mode_pipeline_and_errors():
                       doff_mode="dma")
     with pytest.raises(ValueError, match="doff_mode"):
         tden.run_bm5d(noisy, params, device="cpu", doff_mode="gather")
+
+
+def test_gather_rows_host_path(monkeypatch):
+    """The wrapper's host path on stand-ins for CUDA tensors: it enters
+    torch.cuda.device(<the tensors' card>) only where that card is not the
+    current one, resolves the library's entry point once, and counts each
+    launch."""
+    from lfbm5d_torch.kernels import gather
+
+    class Fake:
+        def __init__(self, shape, dtype, device):
+            self.shape, self.dtype = tuple(shape), dtype
+            self.device = torch.device(device)
+
+        def data_ptr(self):
+            return 0
+
+        def dim(self):
+            return len(self.shape)
+
+    entered, calls, resolved = [], [], []
+
+    class Device:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            entered.append(self.dev)
+
+        def __exit__(self, *exc):
+            entered.pop()
+
+    class Library:
+        def __getattr__(self, name):
+            resolved.append(name)
+
+            def call(*args):
+                calls.append((args[3:5], list(entered)))
+                return 0
+            return call
+
+    lib = Library()
+    monkeypatch.setattr(gather, "library", lambda: lib)
+    monkeypatch.setattr(gather, "_entry", [None, None])
+    monkeypatch.setattr(gather, "stream_of", lambda t: None)
+    monkeypatch.setattr(gather, "require", lambda *a, **kw: None)
+    monkeypatch.setattr(gather.gather_rows, "launches", 0)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype, device: Fake(
+        shape, dtype, device))
+    for card, s in ((0, 34760), (1, 7), (0, 1)):
+        dev = f"cuda:{card}"
+        out = gather_rows(Fake((300, 81), torch.int32, dev),
+                          Fake((s,), torch.int32, dev))
+        assert out.shape == (s, 81) and out.device == torch.device(dev)
+    assert calls == [((34760, 81), []),
+                     ((7, 81), [torch.device("cuda:1")]),
+                     ((1, 81), [])]
+    assert resolved == ["lfbm5d_gather_rows"] and not entered
+    assert gather_rows.launches == 3
+    # an empty gather launches nothing
+    gather_rows(Fake((300, 81), torch.int32, "cuda:0"),
+                Fake((0,), torch.int32, "cuda:0"))
+    assert gather_rows.launches == 3 and len(calls) == 3

@@ -27,6 +27,7 @@ from lfbm5d_torch.pipeline import (
     wiener_step,
 )
 from lfbm5d_torch.pipeline.engine import build_kernel_step
+from lfbm5d_torch.pipeline.streaming import denoise_batch
 
 torch.set_num_threads(2)
 
@@ -167,6 +168,8 @@ ENTRY_POINTS = {
         p.ht, 2.7, 2, 2, 20, 24, 1, False),
     "run_sr": lambda x, p: run_sr(x, SRParams(ht=p.ht, wiener=p.wiener)),
     "LFDenoiser": lambda x, p: LFDenoiser(p)(x),
+    "LFDenoiser.batch": lambda x, p: LFDenoiser(p).batch(x[None]),
+    "denoise_batch": lambda x, p: denoise_batch(x[None], p),
     "LFSuperResolver": lambda x, p: LFSuperResolver(
         SRParams(ht=p.ht, wiener=p.wiener))(x),
 }
@@ -193,13 +196,17 @@ def test_tensor_input_keeps_its_device(tiny_case):
 
 
 def test_import_and_run_without_jax():
-    """In a fresh process (this one imported jax via conftest), the port
-    imports and denoises on the CPU with neither jax nor the JAX package
-    (`lfbm5d_tpu`) ever loaded."""
+    """In a fresh process (this one imported jax via conftest), the port,
+    its CLI, streaming and native codec modules among them, imports and
+    denoises on the CPU with neither jax nor the JAX package (`lfbm5d_tpu`)
+    ever loaded."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
         "import lfbm5d_torch\n"
+        "import lfbm5d_torch.cli, lfbm5d_torch.native, lfbm5d_torch.utils\n"
+        "import lfbm5d_torch.pipeline.stream_io\n"
+        "import lfbm5d_torch.pipeline.driver, lfbm5d_torch.parallel\n"
         "from lfbm5d_torch.lf import add_noise_np, synthetic_lf\n"
         "from lfbm5d_torch import StepParams, DenoiseParams\n"
         "sp = dict(n_sim=4, n_search=2, n_disp=1, k=8, p=4)\n"
