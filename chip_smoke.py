@@ -9,7 +9,8 @@ Usage (from the repository root, one CUDA card):
         turns: the two BM kernels at (b)'s four shapes (outputs equal),
         extract / fused accumulate at (e)'s table shape (extract equal,
         accumulate within 1e-5), and the row gather at (j)'s flagship shape
-        (outputs equal, index_select beside them; see `ab`)
+        (outputs equal, index_select beside them; see `ab`), and both trees'
+        nvcc seconds per source
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
@@ -18,10 +19,12 @@ Usage (from the repository root, one CUDA card):
         the x2 SR of phase (l))
 
 Phases; any failure exits non-zero without the final "ok" line:
-  (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a):
-      ptxas registers and spill per kernel (the BM kernels at k=8, and a
-      summary of k=1..16); the launch plan of every group-kernel shape the
-      phases launch (cluster size, threads, shared bytes per CTA, max active
+  (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a;
+      seconds per source, the group kernels' with both chains): ptxas
+      registers and spill per kernel (the BM kernels at k=8, and a summary
+      of k=1..16; the group kernels as <f32> and <bf16>); the launch plan
+      of every group-kernel shape the phases launch (the bf16
+      instantiations' at 9x9) (cluster size, threads, shared bytes per CTA, max active
       clusters, CTAs per SM), the Python copy (kernels/fused.py::group_plan)
       equal to the library's; the BM plans (kernels/bm.py::bm_plan,
       self_plan) equal to the library's at every BM shape the phases launch;
@@ -110,12 +113,45 @@ Phases; any failure exits non-zero without the final "ok" line:
       back reach final PSNR >= 28.37 dB; then `python -m lfbm5d_torch.cli
       denoise --preset matched --json` on the first of them in a
       subprocess, its PNGs >= 28.37 dB. Where no PNG codec exists, one line
-      names what is missing and the disk part does not run.
+      names what is missing and the disk part does not run;
+  (p) the bfloat16 transform chain (engine "auto_bf16", the reference's
+      `pallas_bf16`): the bf16 group kernels against their bf16 plain
+      versions on the same BM outputs, HT and Wiener, num and deferred den
+      within 1e-3 relative L2 (measured up to 1.6e-4 on an H100: kernel and
+      plain version add in different orders, the tensor cores' sums too, so
+      a value within f32 rounding of a bf16 rounding boundary may round the
+      other way, and HT threshold flips amplify it), at (c)'s 9x9x64x96 RGB
+      matched and one flagship reference (route fused) and at 9x9x64x96
+      `default` (N=16, route banked), with kernel ms, plain ms and the
+      bound beside the f32 kernel's ms on the same reference, timed in
+      turns (f32, bf16, bf16, f32), and untimed at the tile counts and
+      grids no other phase launches (8x8 matched and `default`: even sides,
+      padded slice columns; 11x11: A = 121, eight tiles; 1x1 at flat_tau
+      0); the
+      flagship 9x9x434x625 matched
+      through run_bm5d(engine="auto_bf16"), one warm and one timed run:
+      s/LF, Mpix/s, peak memory, final PSNR >= 28.37 dB and within 0.02 dB
+      of (d)'s f32 final, basic >= 27.64 dB, the bf16 group kernel launched
+      and the f32 one not. The chain costs PSNR in the reference too: its
+      bf16-rounded angular DCT tables scale the mean by 1.0039 (the 9x9 DC
+      entry 1/9 rounds 0.195% high, forward and inverse), and its
+      pallas_bf16 loses 0.013 dB against its f32 at 9x9x32x48
+      (tests/test_torch_bf16.py); whether the 0.01 dB record that admits
+      bf16 into the default chain (ROADMAP, trap 4) is met is printed; `default` and `robust` at 9x9x24x32 through
+      auto_bf16 (route banked, bf16 kernel launched), each within 0.05 dB
+      of (h)'s float64 plain pipeline; 17x17x32x32 matched through
+      auto_bf16 (289 SAIs, beyond the chain's 128): the same step as auto
+      (route banked, f32 kernel launched, no bf16 one), final within 1e-4
+      relative L2 of auto's.
 Then the card's name and power limit, a {"kernels": [...]} line (launches
 from the path each kernel serves; ms and plain_ms at that path's shapes,
-the BM rows at the matched flagship;
+the BM rows at the matched flagship; the bf16 rows' launches from (p)'s
+flagship and `default` runs, their ms at (p)'s flagship reference and
+9x9x64x96 `default` reference;
 bound_ms the larger of the bytes over 3.35 TB/s and the fp32 operations over
-67 TFLOP/s that this run's inputs need), and the last line
+67 TFLOP/s that this run's inputs need, and for the bf16 rows of their
+angular contractions over the 989 TFLOP/s of the bf16 tensor cores), and
+the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -137,6 +173,10 @@ PSNR_17_MIN = 27.907  # recorded 27.957 dB (17x17x128x128 matched) less 0.05
 # (robust: default + 0.136) less 0.05 dB; s/LF ceilings guard the time limit
 PRESET_MIN = {"default": (28.366, 240.0), "robust": (28.502, 90.0)}
 GROUP_REL_MAX = 1e-4
+GROUP_BF16_REL_MAX = 1e-3  # (p): bf16 kernels vs bf16 plain (docstring)
+BF16_PSNR_DELTA_MAX = 0.02  # (p): auto_bf16 vs (d)'s f32 final, dB
+TRAP4_PSNR_DELTA = 0.01  # the record that admits bf16 to the default chain
+A_GT_128_REL_MAX = 1e-4  # (p): auto_bf16 vs auto at 17x17, final
 ACC_REL_MAX = 1e-5
 PSNR_DELTA_MAX = 0.05
 DOFF_PSNR_DELTA_MAX = 0.01  # (k): take/dma vs direct, final PSNR
@@ -158,6 +198,7 @@ GATHER_RAGGED = ((1000, 7, 1031, "float32"), (1000, 1, 1, "float32"),
                  (300, 289, 13, "float32"))
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 # name -> (angular side, H, W, noise seed, preset, fused, doff_mode) of the
 # synthetic two-plane LF (synth seed 0, disp 1/2, sigma 25, RGB) the phases
@@ -203,13 +244,16 @@ def card_line() -> str:
 def ptxas_lines(log: str):
     """'kernel: registers; spills' per kernel from ptxas' -v report; a
     kernel instantiated per k is named kernel<k>, and per k and a flag
-    (the accumulate kernel's den) kernel<k, true|false>."""
+    (the accumulate kernel's den) kernel<k, true|false>; the group kernels'
+    chains kernel<f32|bf16>."""
     name, spill = None, ""
     for line in log.splitlines():
         m = re.search(r"entry function '\w*\d([a-z_]+_kernel)"
-                      r"(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+                      r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", line)
         if m:
             name = m.group(1) + (
+                f"<{'bf16' if m.group(4) == '1' else 'f32'}>"
+                if m.group(4) is not None else
                 "" if m.group(2) is None else f"<{m.group(2)}>"
                 if m.group(3) is None else
                 f"<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>")
@@ -386,10 +430,12 @@ def timed_sr(lr, params, **kw):
     return hr, time.perf_counter() - t0
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the least time for these bytes and fp32
-    operations on an H100 SXM."""
-    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0):
+    """(bound_ms, bound_by): the least time for these bytes, fp32
+    operations and bf16 tensor-core operations on an H100 SXM (the units
+    run side by side: the largest of the three times)."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    tf = max(flops / FP32_FLOPS, tc_flops / BF16_TC_FLOPS) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -590,26 +636,32 @@ def gather_plan_table(lib, params) -> None:
               f"{out[1]} threads, grid {out[2]}")
 
 
-def group_flops(lvl, mask, c, a_h, a_w, wiener) -> float:
-    """fp32 operations of the group stage for this run's live groups:
-    per plane and live group of ns = 2**lvl slots, a transform is
-    np*2048 (spatial) + 128*np*(aH+aW) (angular) + 128*A*ns^2 (stack) with
-    np = ns*A patches; HT runs two transforms, Wiener three; aggregation is
-    128*np more."""
+def group_flops(lvl, mask, c, a_h, a_w, wiener, dense=False):
+    """(fp32 operations, bf16 tensor-core operations) of the group stage
+    for this run's live groups: per plane and live group of ns = 2**lvl
+    slots, a transform is np*2048 (spatial) + 128*np*(aH+aW) (angular) +
+    128*A*ns^2 (stack) with np = ns*A patches; HT runs two transforms,
+    Wiener three; aggregation is 128*np more. The bf16 chain's angular
+    transform is the dense 128*np*A on the tensor cores instead."""
     import torch
 
     a = a_h * a_w
     live = mask.any(dim=1)
     ns = (1 << lvl.long())[live].double()
     npch = ns * a
-    tr = npch * 2048 + 128 * npch * (a_h + a_w) + 128 * a * ns * ns
-    per = (3 if wiener else 2) * tr + 128 * npch
-    return float(torch.sum(per)) * c
+    n_tr = 3 if wiener else 2
+    angular = n_tr * 128 * npch * (a if dense else a_h + a_w)
+    fp32 = n_tr * (npch * 2048 + 128 * a * ns * ns) + 128 * npch
+    if not dense:
+        fp32 = fp32 + angular
+    tc = angular if dense else torch.zeros_like(angular)
+    return float(torch.sum(fp32)) * c, float(torch.sum(tc)) * c
 
 
-def group_setup(params, x, basic, sigma_c, wiener):
-    """The group stage's inputs at the first reference SAI of one step, and
-    run(f, **kw): zero num/wden, then call a group function f on them."""
+def group_setup(params, x, basic, sigma_c, wiener, chain=None):
+    """The group stage's inputs at the first reference SAI of one step (its
+    tables in the transform chain `chain`), and run(f, **kw): zero
+    num/wden, then call a group function f on them."""
     import torch
 
     from lfbm5d_torch.pipeline.denoise import _flat_pad
@@ -619,7 +671,7 @@ def group_setup(params, x, basic, sigma_c, wiener):
     lam = 0.0 if wiener else params.lambda_3d
     a_h, a_w, h, w, c = x.shape
     step = build_kernel_step(sp, lam, a_h, a_w, h, w, c, wiener, "float32",
-                             str(x.device))
+                             str(x.device), chain_dtype=chain)
     xp = _flat_pad(x, sp.pad)
     bp = _flat_pad(basic, sp.pad) if wiener else None
     mp = bp if wiener else xp
@@ -656,10 +708,12 @@ def plan_line(lib, fn_name, n_sim, a_h, a_w, wiener) -> str:
     from lfbm5d_torch.kernels.fused import group_plan
 
     out = (ctypes.c_int * 5)()
-    fn = (lib.lfbm5d_group_occupancy if fn_name == "fused_group_step"
-          else lib.lfbm5d_group_occupancy_banked)
-    check(fn(n_sim, a_h, a_w, int(wiener), out), f"{fn_name} occupancy")
-    py = group_plan(n_sim, a_h, a_w, wiener)
+    fn = (lib.lfbm5d_group_occupancy_banked if "banked" in fn_name
+          else lib.lfbm5d_group_occupancy)
+    bf16 = int(fn_name.endswith("_bf16"))
+    check(fn(n_sim, a_h, a_w, int(wiener), bf16, out),
+          f"{fn_name} occupancy")
+    py = group_plan(n_sim, a_h, a_w, wiener, bool(bf16))
     if tuple(out[:3]) != py:
         raise AssertionError(f"{fn_name} N={n_sim} {a_h}x{a_w}: library plan "
                              f"{tuple(out[:3])} vs Python {py}")
@@ -673,8 +727,8 @@ def plan_line(lib, fn_name, n_sim, a_h, a_w, wiener) -> str:
 def plan_table(lib) -> None:
     """(a): the plan of every group-kernel shape the phases launch (the
     matched, default and robust presets and matched at N=1, at 1x1, 3x3,
-    9x9, 17x17 and 19x19), Python copy == library, printed before the first
-    timed run."""
+    9x9, 17x17 and 19x19; the bf16 instantiations at 9x9), Python copy ==
+    library, printed before the first timed run."""
     from lfbm5d_torch import preset_denoise_params
     from lfbm5d_torch.pipeline.engine import resolve_route
 
@@ -692,20 +746,25 @@ def plan_table(lib) -> None:
                 seen.add(key)
                 fn = ("fused_group_step" if route == "fused"
                       else "fused_group_step_banked")
-                print(f"(a) plan {fn} N={sp.n_sim} {side}x{side} "
-                      f"{'Wiener' if wiener else 'HT'}: "
-                      f"{plan_line(lib, fn, sp.n_sim, side, side, wiener)}")
+                for f in (fn, fn + "_bf16") if side == 9 else (fn,):
+                    print(f"(a) plan {f} N={sp.n_sim} {side}x{side} "
+                          f"{'Wiener' if wiener else 'HT'}: "
+                          f"{plan_line(lib, f, sp.n_sim, side, side, wiener)}")
 
 
 def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
-                timed=True):
+                timed=True, rel_max=GROUP_REL_MAX):
     """A group kernel vs plain at the first reference SAI of one step:
     (max |delta|, kernel ms, plain ms, bound ms, bound_by, setup); the times
-    None unless timed (CUDA events time the current device only)."""
+    None unless timed (CUDA events time the current device only). A *_bf16
+    kernel runs with bf16 tables, as its plain version."""
+    import torch
+
     from lfbm5d_torch.kernels import fused as kf
 
     fn = getattr(kf, fn_name)
-    g = group_setup(params, x, basic, sigma_c, wiener)
+    chain = torch.bfloat16 if fn_name.endswith("_bf16") else None
+    g = group_setup(params, x, basic, sigma_c, wiener, chain)
     run, num, wden, mask, lvl = (g["run"], g["num"], g["wden"], g["mask"],
                                  g["lvl"])
     a_h, a_w, _, _, c = x.shape
@@ -726,12 +785,15 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
         pms = cuda_ms(lambda: run(kf.fused_group_step_plain), reps=2)
         msg += f"; kernel {ms:.3f} ms, plain {pms:.3f} ms"
     print(msg)
-    if not rel_n <= GROUP_REL_MAX or not rel_d <= GROUP_REL_MAX:
+    if not rel_n <= rel_max or not rel_d <= rel_max:
         raise AssertionError(f"{fn_name} ({label}) disagrees with plain")
     moved = nbytes(g["noisy_pl"], g["basic_pl"], g["bidx"], g["sim_y"],
                    g["sim_x"], lvl, mask, g["step"].tables.packed) + 2 * nbytes(
                        num)
-    bms, by = bound(moved, group_flops(lvl, mask, c, a_h, a_w, wiener))
+    if chain is not None:
+        moved += nbytes(g["step"].tables.dense)
+    bms, by = bound(moved, *group_flops(lvl, mask, c, a_h, a_w, wiener,
+                                        dense=chain is not None))
     return err, ms, pms, bms, by, g
 
 
@@ -1071,6 +1133,168 @@ def phase_gather(params, x, x17, sigma_c):
                              f"{set(launched) - shapes}")
     return dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lib)
+
+
+def bf16_kernel_row(label, params, x, basic_w, sig, fn_name, lib):
+    """(p): a bf16 group kernel vs its bf16 plain version, HT then Wiener,
+    at the first reference SAI of x, and the f32 kernel on the same
+    reference in turns (f32, bf16, bf16, f32): the kernels line's row
+    (HT + Wiener summed)."""
+    import torch
+
+    from lfbm5d_torch.kernels import fused as kf
+
+    f32_fn = getattr(kf, fn_name[:-len("_bf16")])
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for basic, wiener in ((None, False), (basic_w, True)):
+        err, _, pms, bms, by, g16 = group_check(
+            f"(p) {label}", params, x, basic, sig, wiener, fn_name, lib,
+            timed=False, rel_max=GROUP_BF16_REL_MAX)
+        g32 = group_setup(params, x, basic, sig, wiener)
+        if not (torch.equal(g32["sim_y"], g16["sim_y"])
+                and torch.equal(g32["bidx"], g16["bidx"])):
+            raise AssertionError(f"(p) {label}: the two steps' BM differs")
+        f32_run = (lambda: g32["run"](f32_fn))
+        bf16_run = (lambda: g16["run"](getattr(kf, fn_name)))
+        ms = [cuda_ms(f) for f in (f32_run, bf16_run, bf16_run, f32_run)]
+        k32, k16 = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        pms = cuda_ms(lambda: g16["run"](kf.fused_group_step_plain), reps=2)
+        print(f"(p) {label} {'Wiener' if wiener else 'HT'}: {fn_name} "
+              f"{ms[1]:.3f} / {ms[2]:.3f} ms, f32 kernel {ms[0]:.3f} / "
+              f"{ms[3]:.3f} ms (bf16/f32 {k16 / k32:.3f}x); bf16 plain "
+              f"{pms:.3f} ms; bound {bms:.3f} ms ({by})")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += k16
+        row["plain_ms"] += pms
+        row["bound_ms"] += bms
+        row["bound_by"] = by
+    return row
+
+
+def phase_bf16(kernels, lib, params, sig, m, d_final, h_ref):
+    """(p): the bfloat16 transform chain (module docstring): kernels vs
+    plain, the flagship, the N=16 presets, the 289-SAI fall-through.
+    Returns ({bf16 kernel: row}, {bf16 kernel: launches})."""
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params, psnr, run_bm5d
+    from lfbm5d_torch.lf import add_noise_np, synthetic_lf
+    from lfbm5d_torch.pipeline.denoise import _raw_step, ht_step
+    from lfbm5d_torch.pipeline.engine import resolve_route
+
+    dev = torch.device("cuda:0")
+    bm_path = ["self_distances_kernel", "cross_argmin_all_kernel"]
+    rows, launches = {}, {}
+    small = lf_on_card(9, 64, 96, 1)[0] @ m.T
+    small_basic = ht_step(small, 25.0, params.ht, params.lambda_3d, "opp",
+                          engine="auto", device=dev)
+    for basic, wiener in ((None, False), (small_basic, True)):
+        group_check("(p) 9x9x64x96", params, small, basic, sig, wiener,
+                    "fused_group_step_bf16", lib, timed=False,
+                    rel_max=GROUP_BF16_REL_MAX)
+    # the tensor-core angular pass at other tile counts and an even grid
+    # (padded slice columns), on both kernels
+    for side, h, w, preset in ((8, 32, 48, "matched"), (8, 32, 48, "default"),
+                               (11, 24, 32, "matched"), (1, 32, 32, "matched")):
+        pp = preset_denoise_params(preset, 25.0)
+        if side == 1:  # one SAI: every group is flat at the preset's flat_tau
+            pp = pp.replace(ht=pp.ht.replace(flat_tau=0.0),
+                            wiener=pp.wiener.replace(flat_tau=0.0))
+        lf = lf_on_card(side, h, w, 1)[0] @ m.T
+        fn = {"fused": "fused_group_step_bf16",
+              "banked": "fused_group_step_banked_bf16"}[
+                  resolve_route(pp.ht, side, side)]
+        for basic, wiener in ((None, False), (lf + 0.5, True)):
+            group_check(f"(p) {side}x{side}x{h}x{w} {preset}", pp, lf, basic,
+                        sig, wiener, fn, lib, timed=False,
+                        rel_max=GROUP_BF16_REL_MAX)
+        del lf
+    dflt = preset_denoise_params("default", 25.0)
+    rows["fused_group_step_banked_bf16"] = bf16_kernel_row(
+        "9x9x64x96 default", dflt, small, small_basic, sig,
+        "fused_group_step_banked_bf16", lib)
+    del small, small_basic
+    noisy, clean = lf_on_card(9, 434, 625, 1)
+    rows["fused_group_step_bf16"] = bf16_kernel_row(
+        "flagship", params, noisy @ m.T, clean @ m.T, sig,
+        "fused_group_step_bf16", lib)
+
+    path = bm_path + ["fused_group_step_bf16"]
+    t0 = time.perf_counter()
+    run_bm5d(noisy, params, engine="auto_bf16")
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ((basic, final), dt), counts = drive(
+        "(p) flagship auto_bf16", kernels, path,
+        lambda: timed_run(noisy, params, engine="auto_bf16"))
+    launches["fused_group_step_bf16"] = counts["fused_group_step_bf16"]
+    if counts["fused_group_step"] or counts["fused_group_step_banked"]:
+        raise AssertionError(f"auto_bf16 launched an f32 group kernel: "
+                             f"{counts}")
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(final.shape) != tuple(noisy.shape) or not bool(
+            torch.isfinite(final).all() & torch.isfinite(basic).all()):
+        raise AssertionError("auto_bf16 flagship output has the wrong shape "
+                             "or non-finite values")
+    p_basic, p_final = psnr(basic, clean), psnr(final, clean)
+    mpix = 9 * 9 * 434 * 625 / 1e6
+    delta = p_final - d_final
+    print(f"(p) flagship 9x9x434x625 RGB matched auto_bf16: warm run "
+          f"{warm:.3f} s, timed run {dt:.4f} s/LF = {mpix / dt:.3f} Mpix/s; "
+          f"PSNR basic {p_basic:.3f} / final {p_final:.4f} dB ((d) f32 "
+          f"{d_final:.4f}, delta {delta:+.4f}); peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"(p) ROADMAP trap 4 (bf16 in the default chain needs a record "
+          f"within {TRAP4_PSNR_DELTA} dB of f32): "
+          f"{'met' if abs(delta) <= TRAP4_PSNR_DELTA else 'not met'} "
+          f"({delta:+.4f} dB); auto stays f32")
+    if (p_final < PSNR_FINAL_MIN or p_basic < PSNR_BASIC_MIN
+            or abs(p_final - d_final) > BF16_PSNR_DELTA_MAX):
+        raise AssertionError(f"auto_bf16 flagship PSNR: basic {p_basic:.3f},"
+                             f" final {p_final:.4f} vs f32 {d_final:.4f}")
+    del noisy, clean, basic, final
+
+    lf_h = add_noise_np(synthetic_lf(9, 9, 24, 32, channels=3, seed=0),
+                        25.0, seed=1)
+    clean_h = synthetic_lf(9, 9, 24, 32, channels=3, seed=0)
+    path = bm_path + ["fused_group_step_banked_bf16"]
+    for preset in ("default", "robust"):
+        ph = preset_denoise_params(preset, 25.0)
+        (_, f16), counts = drive(
+            f"(p) {preset} auto_bf16", kernels, path,
+            lambda: run_bm5d(lf_h, ph, engine="auto_bf16", device=dev))
+        if preset == "default":
+            launches["fused_group_step_banked_bf16"] = counts[
+                "fused_group_step_banked_bf16"]
+        p16 = psnr(f16, clean_h)
+        print(f"(p) {preset} 9x9x24x32 RGB auto_bf16 (route banked): "
+              f"{p16:.3f} dB vs (h)'s plain f64 {h_ref[preset]:.3f} dB "
+              f"(delta {p16 - h_ref[preset]:+.4f})")
+        if abs(p16 - h_ref[preset]) > PSNR_DELTA_MAX:
+            raise AssertionError(f"{preset} auto_bf16 disagrees with the "
+                                 f"f64 reference")
+
+    x17, c17 = lf_on_card(17, 32, 32, 1)
+    keys = [(params.ht, params.lambda_3d, 17, 17, 32, 32, 3, params.chunk,
+             False, "float32", eng, str(dev)) for eng in ("auto", "auto_bf16")]
+    if _raw_step(*keys[0]) is not _raw_step(*keys[1]):
+        raise AssertionError("auto_bf16 at 289 SAIs is not the f32 step")
+    finals = {}
+    for eng in ("auto", "auto_bf16"):
+        (_, finals[eng]), counts = drive(
+            f"(p) 17x17x32x32 {eng}", kernels,
+            bm_path + ["fused_group_step_banked"],
+            lambda: run_bm5d(x17, params, engine=eng))
+        if counts["fused_group_step_banked_bf16"]:
+            raise AssertionError("a bf16 kernel ran beyond 128 SAIs")
+    rel = _rel(finals["auto_bf16"], finals["auto"])
+    print(f"(p) 17x17x32x32 RGB matched: auto_bf16 runs auto's step (route "
+          f"{_raw_step(*keys[1]).route}, chain None); final rel L2 vs auto "
+          f"{rel:.2e}; PSNR {psnr(finals['auto_bf16'], c17):.3f} dB")
+    if rel > A_GT_128_REL_MAX:
+        raise AssertionError("auto_bf16 beyond 128 SAIs differs from auto")
+    return rows, launches
 
 
 def phase_doff(kernels, path, params, noisy, clean, d_final, d_dt):
@@ -1476,10 +1700,14 @@ def ab(parent_dir: str) -> int:
 
     print(card_line())
     lib = _build.library()
+    new_seconds = dict(_build.source_seconds)
     print_ptxas(_build.build_log, "new")
     plib = ctypes.CDLL(str(_build.build(Path(parent_dir) / "lfbm5d_torch"
                                         / "csrc")))
     print_ptxas(_build.build_log, "parent")
+    print("nvcc seconds per source, this tree: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in new_seconds.items()) + "; parent: " +
+        ", ".join(f"{k} {v:.1f}" for k, v in _build.source_seconds.items()))
     for name in ("lfbm5d_self_distances", "lfbm5d_cross_argmin",
                  "lfbm5d_extract_groups", "lfbm5d_accumulate_groups",
                  "lfbm5d_gather_rows"):
@@ -1618,7 +1846,9 @@ def main(argv) -> int:
     )
     from lfbm5d_torch.kernels.extract import extract_groups
     from lfbm5d_torch.kernels.fused import (
-        fused_group_step, fused_group_step_banked, group_smem_bytes,
+        fused_group_step, fused_group_step_banked,
+        fused_group_step_banked_bf16, fused_group_step_bf16,
+        group_smem_bytes,
     )
     from lfbm5d_torch.kernels.gather import gather_rows
     from lfbm5d_torch.lf import (
@@ -1632,6 +1862,8 @@ def main(argv) -> int:
         "cross_argmin_all_kernel": cross_argmin_all_kernel,
         "fused_group_step": fused_group_step,
         "fused_group_step_banked": fused_group_step_banked,
+        "fused_group_step_bf16": fused_group_step_bf16,
+        "fused_group_step_banked_bf16": fused_group_step_banked_bf16,
         "extract_groups": extract_groups,
         "accumulate_groups_fused": accumulate_groups_fused,
         "accumulate_groups": accumulate_groups,
@@ -1656,6 +1888,9 @@ def main(argv) -> int:
         print(f"(a) kernels built and loaded in "
               f"{time.perf_counter() - t0:.1f} s (nvcc: "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.1f} s'})")
+        if _build.source_seconds:
+            print("(a) nvcc seconds per source (in parallel): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in _build.source_seconds.items()))
         print_ptxas(_build.build_log, "(a)")
         plan_table(lib)
         bm_plan_table(lib)
@@ -1815,6 +2050,7 @@ def main(argv) -> int:
         lf_h = add_noise_np(synthetic_lf(9, 9, 24, 32, channels=3, seed=0),
                             25.0, seed=1)
         clean_h = synthetic_lf(9, 9, 24, 32, channels=3, seed=0)
+        h_ref = {}  # preset -> final PSNR of the f64 plain pipeline, for (p)
         for preset in ("default", "robust"):
             ph = preset_denoise_params(preset, 25.0)
             (_, f_gpu), _ = drive(
@@ -1823,7 +2059,8 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             _, f_ref = run_bm5d(lf_h, ph, dtype="float64", engine="torch",
                                 device=dev)
-            d_ps = psnr(f_gpu, clean_h) - psnr(f_ref, clean_h)
+            h_ref[preset] = psnr(f_ref, clean_h)
+            d_ps = psnr(f_gpu, clean_h) - h_ref[preset]
             print(f"(h) {preset} 9x9x24x32 RGB: kernels (route banked, f32) "
                   f"{psnr(f_gpu, clean_h):.3f} dB vs plain f64 "
                   f"{psnr(f_ref, clean_h):.3f} dB (delta {d_ps:+.4f}; plain "
@@ -1878,6 +2115,12 @@ def main(argv) -> int:
         phase = "(o)"
         phase_disk(kernels, fused_path, params, clean_np, noisy_np)
         del clean_np, noisy_np
+
+        phase = "(p)"
+        bf16_rows, bf16_launches = phase_bf16(kernels, lib, params, sig, m,
+                                              d_final, h_ref)
+        rows.update(bf16_rows)
+        launches.update(bf16_launches)
         bad = [n for n in sys.modules
                if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
         if bad:
@@ -1896,6 +2139,10 @@ def main(argv) -> int:
                              "lfbm5d_tpu/kernels/fused.py:433"),
         "fused_group_step_banked": ("lfbm5d_torch/csrc/fused_banked.cu",
                                     "lfbm5d_tpu/kernels/fused.py:796"),
+        "fused_group_step_bf16": ("lfbm5d_torch/csrc/fused.cu",
+                                  "lfbm5d_tpu/kernels/fused.py:433"),
+        "fused_group_step_banked_bf16": ("lfbm5d_torch/csrc/fused_banked.cu",
+                                         "lfbm5d_tpu/kernels/fused.py:796"),
         "extract_groups": ("lfbm5d_torch/csrc/twokernel.cu",
                            "lfbm5d_tpu/kernels/extract.py:64"),
         "accumulate_groups_fused": ("lfbm5d_torch/csrc/twokernel.cu",

@@ -37,13 +37,11 @@ from lfbm5d_torch.lf.noise import add_noise_np
 
 # the reference CLI's engine names -> the port's engines
 _ENGINES = {"auto": "auto", "pallas": "auto", "xla": "torch",
-            "torch": "torch"}
+            "torch": "torch", "pallas_bf16": "auto_bf16",
+            "auto_bf16": "auto_bf16"}
 
 
 def _engine(name: str) -> str:
-    if name == "pallas_bf16":
-        raise SystemExit("error: --engine pallas_bf16 has no counterpart in "
-                         "the PyTorch port (its kernels compute in float32)")
     return _ENGINES[name]
 
 
@@ -132,10 +130,13 @@ def _common_io_args(ap):
     ap.add_argument("--color-space", default="opp",
                     choices=["opp", "yuv", "ycbcr", "rgb"])
     ap.add_argument("--engine", default="auto",
-                    choices=["auto", "pallas", "pallas_bf16", "xla", "torch"],
+                    choices=["auto", "pallas", "pallas_bf16", "auto_bf16",
+                             "xla", "torch"],
                     help="auto / pallas: the CUDA kernels (their plain "
-                    "versions on the CPU); xla / torch: plain torch; "
-                    "pallas_bf16 is refused")
+                    "versions on the CPU); auto_bf16 / pallas_bf16: the "
+                    "same with the group stage's transform chain in "
+                    "bfloat16 (grids of at most 128 SAIs; f32 beyond); "
+                    "xla / torch: plain torch")
     ap.add_argument("--device", default=None,
                     help="device to run on (default: the CUDA card; 'cpu' "
                     "runs on the host)")

@@ -34,6 +34,14 @@
 // one shared-memory load per transform line (not per multiply-add), the
 // f32 atomics of aggregation (ns*A*64 per group-channel) and three cluster
 // barriers per group-channel.
+//
+// group_kernel<true> is the bfloat16 chain (lfbm5d_tpu/kernels/fused.py with
+// cdt = bfloat16, the reference's `pallas_bf16` engine), picked by the
+// launch's bf16 argument: the same passes with the rounding points of
+// group_stage.cuh, except that the angular transform is one dense
+// contraction over the SAIs with the bf16-rounded kron table (kang), as the
+// reference's, run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// sums); the plan and shared memory are the f32 chain's.
 
 #include "group_stage.cuh"
 
@@ -41,9 +49,11 @@ namespace {
 
 constexpr int MAXG = 16;
 
+// BF16: the bfloat16 transform chain (group_stage.cuh).
+template <bool BF16>
 __global__ void __launch_bounds__(MAX_THREADS, 1) group_kernel(Args p) {
   extern __shared__ float sm[];
-  run_groups<MAXG>(p, sm);
+  run_groups<MAXG, BF16>(p, sm);
 }
 
 }  // namespace
@@ -61,27 +71,37 @@ int lfbm5d_group_smem_bytes(int n, int a, int a_h, int a_w) {
 }
 
 // out[5]: cluster size, threads, dynamic shared bytes per CTA, max active
-// clusters and CTAs per SM of the group kernel at this shape.
-int lfbm5d_group_occupancy(int N, int aH, int aW, int wiener, int* out) {
-  return occupancy(group_kernel, N, aH, aW, wiener, out);
+// clusters and CTAs per SM of the group kernel at this shape;
+// bf16: the bfloat16 chain's instantiation.
+int lfbm5d_group_occupancy(int N, int aH, int aW, int wiener, int bf16,
+                           int* out) {
+  return bf16 ? occupancy(group_kernel<true>, N, aH, aW, wiener, 1, out)
+              : occupancy(group_kernel<false>, N, aH, aW, wiener, 0, out);
 }
 
 // doff: [T, N, A] per-slot displacement indices, or null to read them from
-// bidx (the step's `direct` mode). tables: kernels/fused.py::kernel_tables.
+// bidx (the step's `direct` mode). tables: kernels/fused.py::kernel_tables
+// (bf16-rounded for bf16 = 1, which launches the bfloat16 chain). kang:
+// the bfloat16 chain's dense angular tables, bf16 [2][KP][KP] with KP = A
+// rounded up to 16 (GroupTables.dense), or null (f32, or no angular
+// transform); bf16 takes A <= 128.
 int lfbm5d_group_step(const void* noisy, const void* basic, const void* bidx,
                       const void* doff, const void* sim_y, const void* sim_x,
                       const void* lvl, const void* mask, const void* sigma,
-                      const void* tables, void* num, void* wden, int T, int N,
+                      const void* tables, const void* kang, void* num,
+                      void* wden, int T, int N,
                       int A, int aH, int aW, int C, int Hp, int Wp, int V0,
-                      int V1, int nd, int ref, int wiener, float lambda,
-                      void* stream) {
-  if (N > MAXN || aH > MAXG || aW > MAXG || aH * aW != A)
+                      int V1, int nd, int ref, int wiener, int bf16,
+                      float lambda, void* stream) {
+  if (N > MAXN || aH > MAXG || aW > MAXG || aH * aW != A ||
+      (bf16 && A > KT))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args p = make_args(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                           sigma, num, wden, T, N, A, aH, aW, C, Hp, Wp, V0,
-                           V1, nd, ref, wiener, lambda);
-  return launch_groups(group_kernel, p, tables,
-                       static_cast<cudaStream_t>(stream));
+                           sigma, kang, num, wden, T, N, A, aH, aW, C, Hp,
+                           Wp, V0, V1, nd, ref, wiener, lambda);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_groups(group_kernel<true>, p, tables, 1, st)
+              : launch_groups(group_kernel<false>, p, tables, 0, st);
 }
 
 }  // extern "C"

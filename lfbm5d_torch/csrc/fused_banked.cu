@@ -23,6 +23,10 @@
 // with aH + aW: about 8.6 M multiply-adds per transform at 17x17 N=8, two
 // transforms per HT group-channel, three per Wiener one), the aggregation
 // atomics, and the cluster barriers, which at cs=16 wait on sixteen CTAs.
+//
+// banked_kernel<true> is the bfloat16 chain, as group_kernel<true> in
+// csrc/fused.cu; the engine launches it for N=16 groups at grids of at most
+// 128 SAIs (the reference's bf16 chain stops at one 128-lane bank).
 
 #include "group_stage.cuh"
 
@@ -31,9 +35,11 @@ namespace {
 constexpr int MAXG = 19;
 constexpr int MAXA = 384;
 
+// BF16: the bfloat16 transform chain (group_stage.cuh).
+template <bool BF16>
 __global__ void __launch_bounds__(MAX_THREADS, 1) banked_kernel(Args p) {
   extern __shared__ float sm[];
-  run_groups<MAXG>(p, sm);
+  run_groups<MAXG, BF16>(p, sm);
 }
 
 }  // namespace
@@ -42,26 +48,31 @@ extern "C" {
 
 // As lfbm5d_group_occupancy, for the banked kernel.
 int lfbm5d_group_occupancy_banked(int N, int aH, int aW, int wiener,
-                                  int* out) {
-  return occupancy(banked_kernel, N, aH, aW, wiener, out);
+                                  int bf16, int* out) {
+  return bf16 ? occupancy(banked_kernel<true>, N, aH, aW, wiener, 1, out)
+              : occupancy(banked_kernel<false>, N, aH, aW, wiener, 0, out);
 }
 
-// As lfbm5d_group_step (doff included).
+// As lfbm5d_group_step (doff, bf16 and kang included).
 int lfbm5d_group_step_banked(const void* noisy, const void* basic,
                              const void* bidx, const void* doff,
                              const void* sim_y, const void* sim_x,
                              const void* lvl, const void* mask,
-                             const void* sigma, const void* tables, void* num,
-                             void* wden, int T, int N, int A, int aH, int aW,
+                             const void* sigma, const void* tables,
+                             const void* kang, void* num, void* wden, int T,
+                             int N, int A, int aH, int aW,
                              int C, int Hp, int Wp, int V0, int V1, int nd,
-                             int ref, int wiener, float lambda, void* stream) {
-  if (N > MAXN || aH > MAXG || aW > MAXG || A > MAXA || aH * aW != A)
+                             int ref, int wiener, int bf16, float lambda,
+                             void* stream) {
+  if (N > MAXN || aH > MAXG || aW > MAXG || A > MAXA || aH * aW != A ||
+      (bf16 && A > KT))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args p = make_args(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                           sigma, num, wden, T, N, A, aH, aW, C, Hp, Wp, V0,
-                           V1, nd, ref, wiener, lambda);
-  return launch_groups(banked_kernel, p, tables,
-                       static_cast<cudaStream_t>(stream));
+                           sigma, kang, num, wden, T, N, A, aH, aW, C, Hp,
+                           Wp, V0, V1, nd, ref, wiener, lambda);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_groups(banked_kernel<true>, p, tables, 1, st)
+              : launch_groups(banked_kernel<false>, p, tables, 0, st);
 }
 
 }  // extern "C"

@@ -39,12 +39,26 @@
 // The passes step their item indices instead of dividing, and the Wiener
 // stack pass holds omega and the coefficients, never both groups, at once.
 // Nothing of the group leaves the SMs. The launch plan (cs, threads, shared
-// bytes) follows from N, aH, aW and Wiener alone (make_plan; Python copy in
-// kernels/fused.py::group_plan).
+// bytes) follows from N, aH, aW, Wiener and the chain alone (make_plan;
+// Python copy in kernels/fused.py::group_plan).
+//
+// BF16 instantiates the bfloat16 transform chain (the reference kernels with
+// cdt = bfloat16; transforms/apply.py states the rounding points and
+// tables): the caller's spatial tables are the bf16-rounded 1-D factors;
+// `load` rounds the group to bf16; the spatial pass rounds its result after
+// the second 1-D transform; the angular transform is one dense contraction
+// with the bf16-rounded kron table on the tensor cores (`angular_dense`,
+// Args::kang: rounding the two 1-D factors instead would double the chain's
+// gain on the mean), rounded; the stack transform, the Wiener product and the inverse stack
+// each round theirs (round to nearest even). Every product accumulates in
+// f32, and the shrink, the weights, the Kaiser weighting and the atomics
+// stay f32. The group stays in f32 shared memory holding bf16-rounded
+// values, so the slices and the plan are the f32 chain's.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -64,6 +78,7 @@ constexpr int SMEM_PER_BLOCK = 232448;  // 227 KB a block may use
 constexpr int SMEM_RESERVED = 1024;     // the system's share per block
 constexpr int STATIC_SMEM = 256;        // bound on run_groups' static arrays
 constexpr int STACK_FLOATS = 341;       // levels 1, 2, 4, 8, 16: sum of s^2
+constexpr int KT = 128;  // largest A of the BF16 chain's dense angular table
 
 // Transform tables in constant memory (kernels/fused.py::kernel_tables):
 // matrices row-major [out][in], angular ones [len][len] at the head of their
@@ -87,6 +102,7 @@ struct Args {
   const int* lvl;        // [T]
   const uint8_t* mask;   // [T, N]
   const float* sigma;    // [C]
+  const uint32_t* kang;  // BF16: [2][KP][KP] bf16 dense angular tables, or null
   float* num;            // [C, A, Hp, Wp]
   float* wden;           // [C, A, Hp, Wp] deferred denominator weights
   int T, N, A, aH, aW, C, Hp, Wp, V0, V1, nd, ref, wiener;
@@ -101,23 +117,33 @@ __host__ __device__ inline int slice_stride(int n, int a_h, int a_w) {
   return (n * a_h * (a_w | 1)) | 1;
 }
 
-// Dynamic shared memory at cluster size cs: the slice and the origins of
-// the CTA's share of the patches.
-inline int plan_smem(int n, int a_h, int a_w, int wiener, int cs) {
+// Words of the BF16 chain's shared angular table: one direction's dense
+// table at a time, 16 * tiles rows of 8 * tiles bf16 pairs padded by 4
+// (tiles = A / 16 rounded up), so A-fragment reads hit 32 banks, and 4
+// words to align it to 16 bytes.
+__host__ __device__ inline int table_words(int a) {
+  const int tiles = (a + 15) / 16;
+  return 16 * tiles * (8 * tiles + 4) + 4;
+}
+
+// Dynamic shared memory at cluster size cs: the slice, the origins of the
+// CTA's share of the patches and, for the BF16 chain, its angular table.
+inline int plan_smem(int n, int a_h, int a_w, int wiener, int bf16, int cs) {
   const int patches = (n * a_h * a_w + cs - 1) / cs;
   return 4 * ((wiener ? 2 : 1) * (KK / cs) * slice_stride(n, a_h, a_w) +
-              2 * patches);
+              2 * patches + (bf16 ? table_words(a_h * a_w) : 0));
 }
 
 // The fewest CTAs whose slice fits two CTAs (256 threads each) on an SM,
 // else one CTA of 512 threads: 16 warps per SM either way.
-inline bool make_plan(int n, int a_h, int a_w, int wiener, Plan* out) {
+inline bool make_plan(int n, int a_h, int a_w, int wiener, int bf16,
+                      Plan* out) {
   for (int per_sm = 2; per_sm >= 1; --per_sm) {
     int limit = SMEM_PER_SM / per_sm - SMEM_RESERVED;
     if (limit > SMEM_PER_BLOCK) limit = SMEM_PER_BLOCK;
     limit -= STATIC_SMEM;
     for (int cs = 1; cs <= MAX_CLUSTER; cs *= 2) {
-      const int smem = plan_smem(n, a_h, a_w, wiener, cs);
+      const int smem = plan_smem(n, a_h, a_w, wiener, bf16, cs);
       if (smem <= limit) {
         *out = Plan{cs, MAX_THREADS / per_sm, smem};
         return true;
@@ -136,6 +162,13 @@ __device__ float block_sum(float v, float* red) {
   float s = 0.f;
   for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
   return s;
+}
+
+// x rounded to bfloat16 (nearest even) in the BF16 chain, else x.
+template <bool BF16>
+__device__ __forceinline__ float chain_round(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
 }
 
 // 8x8 transpose over the 8 lanes of a patch: lane L's a[R] = M[R][L] on
@@ -159,6 +192,7 @@ __device__ __forceinline__ void transpose8(float (&a)[K], int lane8) {
 }
 
 // Lane j: x = column j of the patch X -> row u = j of Z = F2 X F2^T.
+template <bool BF16>
 __device__ __forceinline__ void spatial_fwd(float (&x)[K], int lane8) {
   float y[K];
 #pragma unroll
@@ -174,11 +208,12 @@ __device__ __forceinline__ void spatial_fwd(float (&x)[K], int lane8) {
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < K; ++j) acc = fmaf(ctab.f2[v * K + j], y[j], acc);
-    x[v] = acc;
+    x[v] = chain_round<BF16>(acc);
   }
 }
 
 // Lane u: z = row u of Z -> column j = u of X = I2 Z I2^T.
+template <bool BF16>
 __device__ __forceinline__ void spatial_inv(float (&z)[K], int lane8) {
   float r[K];
 #pragma unroll
@@ -194,7 +229,7 @@ __device__ __forceinline__ void spatial_inv(float (&z)[K], int lane8) {
     float acc = 0.f;
 #pragma unroll
     for (int u = 0; u < K; ++u) acc = fmaf(ctab.i2[i * K + u], r[u], acc);
-    z[i] = acc;
+    z[i] = chain_round<BF16>(acc);
   }
 }
 
@@ -254,11 +289,140 @@ __device__ __forceinline__ void angular_pass(int len, float* S, int rows,
   }
 }
 
+// One tensor-core product D += A B, m16n8k16, bf16 inputs, f32 accumulate:
+// lane (g = lane / 4, c = lane % 4) holds A rows g, g+8 at columns 2c, 2c+1,
+// 2c+8, 2c+9 (a[0..3]), B rows 2c, 2c+1 (b0) and 2c+8, 2c+9 (b1) of column
+// g, and D rows g, g+8 at columns 2c, 2c+1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as the bf16 pair of one fragment register (lo first).
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The BF16 chain's angular transform: out = K v over the A SAIs of every
+// item (row, slot) of the slice, in place, rounded to bf16, on the tensor
+// cores. K is the dense bf16-rounded table (kron of the two angular DCTs, as
+// the reference's), kt [KP][KP] bf16 row-major (q, a) in shared memory
+// (`load_table`: rows of 8 * TILES + 4 pairs), zero padded to KP = 16 *
+// TILES >= A. The items hold bf16 values, so the products are exact and the
+// sums f32, as the reference's bf16 x bf16 -> f32 dot products. A warp
+// takes 8 items (one n8 tile) at a time: it loads their values as B
+// fragments for every k tile first, then runs the m tiles, each
+// accumulating over the k tiles from A fragments, and writes its outputs.
+// SAI a sits at column a, or a + a / aW when aW is even (PAD: awp = aW +
+// 1). TILES and PAD are template parameters so the fragments stay in
+// registers and odd grids skip the division.
+template <int TILES, bool PAD>
+__device__ void angular_mma(float* S, int rows, int ps, int lg_ns, int ap,
+                            int aW, int A, const uint32_t* kt) {
+  constexpr int KP2 = TILES * 8 + 4;  // words per shared table row
+  const int items = rows << lg_ns;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const float inv_aw = 1.f / aW;
+  auto col = [&](int a) {
+    if constexpr (PAD) return a + __float2int_rz((a + 0.5f) * inv_aw);
+    return a;
+  };
+  auto base = [&](int it) {
+    return (it >> lg_ns) * ps + (it & ((1 << lg_ns) - 1)) * ap;
+  };
+  for (int ib = 8 * (threadIdx.x >> 5); ib < items;
+       ib += 8 * (blockDim.x >> 5)) {
+    uint32_t b[TILES][2];
+    {
+      const int it = ib + g;
+      const int bs = it < items ? base(it) : 0;
+#pragma unroll
+      for (int k = 0; k < TILES; ++k) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int a = 16 * k + 2 * c + (j & 1) + 8 * (j >> 1);
+          v[j] = it < items && a < A ? S[bs + col(a)] : 0.f;
+        }
+        b[k][0] = bf16_pair(v[0], v[1]);
+        b[k][1] = bf16_pair(v[2], v[3]);
+      }
+    }
+    __syncwarp();  // every lane holds its inputs before any output lands
+    const int out_it[2] = {ib + 2 * c, ib + 2 * c + 1};  // D columns
+    const int out_base[2] = {base(out_it[0]), base(out_it[1])};
+#pragma unroll 2
+    for (int m = 0; m < TILES; ++m) {
+      float d[4] = {};
+      const uint32_t* r0 = kt + (16 * m + g) * KP2 + c;
+      const uint32_t* r1 = r0 + 8 * KP2;
+#pragma unroll
+      for (int k = 0; k < TILES; ++k) {
+        const uint32_t a[4] = {r0[8 * k], r1[8 * k], r0[8 * k + 4],
+                               r1[8 * k + 4]};
+        mma_bf16(d, a, b[k][0], b[k][1]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int q = 16 * m + g + 8 * (r >> 1);
+        if (q < A && out_it[r & 1] < items)
+          S[out_base[r & 1] + col(q)] = chain_round<true>(d[r]);
+      }
+    }
+  }
+}
+
+// Copies one direction's dense table of Args::kang (forward, or inverse:
+// the second) into the CTA's shared table (16-byte aligned), rows padded as
+// angular_mma reads them, in 16-byte words with four loads in flight per
+// thread. The caller orders it against the table's readers.
+__device__ void load_table(uint32_t* dst, const uint32_t* kang, int A,
+                           bool inverse) {
+  const int tiles = (A + 15) >> 4, row4 = 2 * tiles, n4 = 16 * tiles * row4;
+  const uint4* src = reinterpret_cast<const uint4*>(kang) + (inverse ? n4 : 0);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    *reinterpret_cast<uint4*>(dst + i / row4 * (4 * row4 + 4) +
+                              i % row4 * 4) = __ldg(src + i);
+}
+
+// angular_mma at the table's tile count (A <= 128: 1..8 tiles) and column
+// padding; kt: the shared table (load_table).
+template <bool PAD>
+__device__ void angular_tiles(float* S, int rows, int ps, int lg_ns, int ap,
+                              int aW, int A, const uint32_t* kt) {
+  switch ((A + 15) >> 4) {
+    case 1: return angular_mma<1, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    case 2: return angular_mma<2, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    case 3: return angular_mma<3, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    case 4: return angular_mma<4, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    case 5: return angular_mma<5, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    case 6: return angular_mma<6, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    case 7: return angular_mma<7, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+    default: return angular_mma<8, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+  }
+}
+
+__device__ void angular_dense(float* S, int rows, int ps, int lg_ns, int ap,
+                              int aH, int aW, const uint32_t* kt) {
+  if (aW & 1) {
+    angular_tiles<false>(S, rows, ps, lg_ns, ap, aW, aH * aW, kt);
+  } else {
+    angular_tiles<true>(S, rows, ps, lg_ns, ap, aW, aH * aW, kt);
+  }
+}
+
 // Stack transform of NS live slots, shrink, inverse stack, on the noisy
 // region (the basic region guides Wiener). Items (lc, s, t), t fastest,
 // stepped by blockDim without dividing. Returns this thread's part of the
-// HT count or of the Wiener sum of omega^2.
-template <int NS, bool WIENER>
+// HT count or of the Wiener sum of omega^2. The BF16 chain rounds both
+// forward stack results, the Wiener product and the inverse stack's.
+template <int NS, bool WIENER, bool BF16>
 __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
                               int aW, int awp, float sig2, float thr) {
   constexpr int LOFF = (NS * NS - 1) / 3;
@@ -291,6 +455,7 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
 #pragma unroll
         for (int n = 0; n < NS; ++n)
           b = fmaf(ctab.stf[LOFF + q * NS + n], vb[n], b);
+        b = chain_round<BF16>(b);
         const float b2 = b * b;
         y[q] = b2 / (b2 + sig2);
         part += y[q] * y[q];
@@ -305,8 +470,9 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
 #pragma unroll
       for (int n = 0; n < NS; ++n)
         acc = fmaf(ctab.stf[LOFF + q * NS + n], v[n], acc);
+      acc = chain_round<BF16>(acc);
       if constexpr (WIENER) {
-        acc *= y[q];
+        acc = chain_round<BF16>(acc * y[q]);
       } else if (fabsf(acc) >= thr) {
         part += 1.f;
       } else {
@@ -320,27 +486,27 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
 #pragma unroll
       for (int n = 0; n < NS; ++n)
         acc = fmaf(ctab.sti[LOFF + q * NS + n], y[n], acc);
-      col[q * ap] = acc;
+      col[q * ap] = chain_round<BF16>(acc);
     }
   }
   return part;
 }
 
-template <bool WIENER>
+template <bool WIENER, bool BF16>
 __device__ float stack_pass(int ns, float* S, int cpc, int ps, int ap, int aH,
                             int aW, int awp, float sig2, float thr) {
   switch (ns) {
-    case 1: return stack_shrink<1, WIENER>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
-    case 2: return stack_shrink<2, WIENER>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
-    case 4: return stack_shrink<4, WIENER>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
-    case 8: return stack_shrink<8, WIENER>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
-    default: return stack_shrink<16, WIENER>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
+    case 1: return stack_shrink<1, WIENER, BF16>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
+    case 2: return stack_shrink<2, WIENER, BF16>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
+    case 4: return stack_shrink<4, WIENER, BF16>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
+    case 8: return stack_shrink<8, WIENER, BF16>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
+    default: return stack_shrink<16, WIENER, BF16>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
   }
 }
 
 // The group stage of one reference SAI; sm: the dynamic shared memory
-// (slice, then the origins of this CTA's patches).
-template <int MAXG>
+// (slice, then the origins of this CTA's patches). BF16: the chain.
+template <int MAXG, bool BF16>
 __device__ void run_groups(const Args& p, float* sm) {
   __shared__ float red[MAX_THREADS / 32];
   __shared__ uint8_t smask[MAXN];
@@ -356,6 +522,9 @@ __device__ void run_groups(const Args& p, float* sm) {
   const int region = cpc * ps;
   int* oy = reinterpret_cast<int*>(sm + (p.wiener ? 2 : 1) * region);
   int* ox = oy + (p.N * p.A + cs - 1) / cs;
+  uint32_t* ktab = reinterpret_cast<uint32_t*>(
+      (reinterpret_cast<uintptr_t>(ox + (p.N * p.A + cs - 1) / cs) + 15) &
+      ~uintptr_t{15});
 
   // lane8 is this lane's column of a patch (gather, aggregation) and its
   // row u of coefficients (scatter, read back): cf = u*8 + v, owned by
@@ -403,6 +572,9 @@ __device__ void run_groups(const Args& p, float* sm) {
       const float sig = p.sigma[c];
       const float sig2 = sig * sig;
       cluster.sync();  // every CTA is done reading the slices (last channel)
+      if constexpr (BF16) {  // ready at the barrier after the scatter
+        if (p.kang) load_table(ktab, p.kang, p.A, false);
+      }
       // steps (round, region), basic first; the next step's loads are in
       // flight while this one is transformed and stored
       const int steps = rounds << p.wiener;
@@ -414,7 +586,8 @@ __device__ void run_groups(const Args& p, float* sm) {
           const float* src = (g ? p.basic : p.noisy) + c * plane +
                              ((size_t)a * p.Hp + oy[i]) * p.Wp + ox[i] + lane8;
 #pragma unroll
-          for (int r = 0; r < K; ++r) x[r] = __ldg(src + r * p.Wp);
+          for (int r = 0; r < K; ++r)
+            x[r] = chain_round<BF16>(__ldg(src + r * p.Wp));
         } else {
 #pragma unroll
           for (int r = 0; r < K; ++r) x[r] = 0.f;
@@ -427,7 +600,7 @@ __device__ void run_groups(const Args& p, float* sm) {
         load(st + 1, nx);
         const int i = (st >> p.wiener) * per_round + sub;
         const int g = p.wiener - (st & p.wiener);
-        spatial_fwd(x, lane8);
+        spatial_fwd<BF16>(x, lane8);
         if (i < nloc) {
           const int n = (p0 + i) / p.A, a = (p0 + i) % p.A;
           const int colx = n * ap + (a / p.aW) * awp + a % p.aW;
@@ -442,20 +615,33 @@ __device__ void run_groups(const Args& p, float* sm) {
       cluster.sync();  // the slices are complete
 
       const int rows = (p.wiener ? 2 : 1) * cpc;
-      angular_pass<0, MAXG>(p.aH, sm, rows, ps, s_lvl, ap, p.aW, 1, awp);
-      __syncthreads();
-      angular_pass<2, MAXG>(p.aW, sm, rows, ps, s_lvl, ap, p.aH, awp, 1);
+      if constexpr (BF16) {
+        if (p.kang) {
+          angular_dense(sm, rows, ps, s_lvl, ap, p.aH, p.aW, ktab);
+          __syncthreads();  // the forward table is read; block_sum orders
+          load_table(ktab, p.kang, p.A, true);  // the inverse before use
+        }
+      } else {
+        angular_pass<0, MAXG>(p.aH, sm, rows, ps, s_lvl, ap, p.aW, 1, awp);
+        __syncthreads();
+        angular_pass<2, MAXG>(p.aW, sm, rows, ps, s_lvl, ap, p.aH, awp, 1);
+      }
       __syncthreads();
       const float part =
-          p.wiener ? stack_pass<true>(ns, sm, cpc, ps, ap, p.aH, p.aW, awp,
-                                      sig2, 0.f)
-                   : stack_pass<false>(ns, sm, cpc, ps, ap, p.aH, p.aW, awp,
-                                       sig2, p.lambda * sig);
+          p.wiener ? stack_pass<true, BF16>(ns, sm, cpc, ps, ap, p.aH, p.aW,
+                                            awp, sig2, 0.f)
+                   : stack_pass<false, BF16>(ns, sm, cpc, ps, ap, p.aH, p.aW,
+                                             awp, sig2, p.lambda * sig);
       const float tot = block_sum(part, red);  // orders the stack pass too
       if (threadIdx.x == 0) s_part = tot;
-      angular_pass<1, MAXG>(p.aH, sm, cpc, ps, s_lvl, ap, p.aW, 1, awp);
-      __syncthreads();
-      angular_pass<3, MAXG>(p.aW, sm, cpc, ps, s_lvl, ap, p.aH, awp, 1);
+      if constexpr (BF16) {
+        if (p.kang)
+          angular_dense(sm, cpc, ps, s_lvl, ap, p.aH, p.aW, ktab);
+      } else {
+        angular_pass<1, MAXG>(p.aH, sm, cpc, ps, s_lvl, ap, p.aW, 1, awp);
+        __syncthreads();
+        angular_pass<3, MAXG>(p.aW, sm, cpc, ps, s_lvl, ap, p.aH, awp, 1);
+      }
       cluster.sync();  // inverse slices and partials are complete
 
       if (threadIdx.x == 0) {
@@ -488,7 +674,7 @@ __device__ void run_groups(const Args& p, float* sm) {
         float nz[K];
         fetch(rd + 1, nz);
         const int i = rd * per_round + sub;
-        spatial_inv(z, lane8);
+        spatial_inv<BF16>(z, lane8);
         const int n = (p0 + i) / p.A;
         if (i < nloc && smask[n]) {
           const int a = (p0 + i) % p.A;
@@ -510,9 +696,9 @@ __device__ void run_groups(const Args& p, float* sm) {
 inline Args make_args(const void* noisy, const void* basic, const void* bidx,
                       const void* doff, const void* sim_y, const void* sim_x,
                       const void* lvl, const void* mask, const void* sigma,
-                      void* num, void* wden, int T, int N, int A, int aH,
-                      int aW, int C, int Hp, int Wp, int V0, int V1, int nd,
-                      int ref, int wiener, float lambda) {
+                      const void* kang, void* num, void* wden, int T, int N,
+                      int A, int aH, int aW, int C, int Hp, int Wp, int V0,
+                      int V1, int nd, int ref, int wiener, float lambda) {
   Args p;
   p.noisy = static_cast<const float*>(noisy);
   p.basic = static_cast<const float*>(basic);
@@ -523,6 +709,7 @@ inline Args make_args(const void* noisy, const void* basic, const void* bidx,
   p.lvl = static_cast<const int*>(lvl);
   p.mask = static_cast<const uint8_t*>(mask);
   p.sigma = static_cast<const float*>(sigma);
+  p.kang = static_cast<const uint32_t*>(kang);
   p.num = static_cast<float*>(num);
   p.wden = static_cast<float*>(wden);
   p.T = T;
@@ -569,9 +756,10 @@ cudaError_t prepare(Kernel kernel, const Plan& plan, cudaStream_t stream,
 
 // out: cs, threads, shared bytes, max active clusters, CTAs per SM.
 template <typename Kernel>
-int occupancy(Kernel kernel, int N, int aH, int aW, int wiener, int* out) {
+int occupancy(Kernel kernel, int N, int aH, int aW, int wiener, int bf16,
+              int* out) {
   Plan plan;
-  if (!make_plan(N, aH, aW, wiener, &plan))
+  if (!make_plan(N, aH, aW, wiener, bf16, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
@@ -594,10 +782,10 @@ int occupancy(Kernel kernel, int N, int aH, int aW, int wiener, int* out) {
 // on the card at once (at most one per group); they stride over the groups.
 // A plan that cannot launch a single cluster raises (no fallback).
 template <typename Kernel>
-int launch_groups(Kernel kernel, const Args& p, const void* tables,
+int launch_groups(Kernel kernel, const Args& p, const void* tables, int bf16,
                   cudaStream_t stream) {
   Plan plan;
-  if (!make_plan(p.N, p.aH, p.aW, p.wiener, &plan))
+  if (!make_plan(p.N, p.aH, p.aW, p.wiener, bf16, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,10 +32,10 @@ _SIGNATURES = {
     "lfbm5d_bm_plan": [_I] * 5 + [_P],
     "lfbm5d_self_plan": [_I] * 3 + [_P],
     "lfbm5d_group_smem_bytes": [_I, _I, _I, _I],
-    "lfbm5d_group_occupancy": [_I] * 4 + [_P],
-    "lfbm5d_group_occupancy_banked": [_I] * 4 + [_P],
-    "lfbm5d_group_step": [_P] * 12 + [_I] * 13 + [_F, _P],
-    "lfbm5d_group_step_banked": [_P] * 12 + [_I] * 13 + [_F, _P],
+    "lfbm5d_group_occupancy": [_I] * 5 + [_P],
+    "lfbm5d_group_occupancy_banked": [_I] * 5 + [_P],
+    "lfbm5d_group_step": [_P] * 13 + [_I] * 14 + [_F, _P],
+    "lfbm5d_group_step_banked": [_P] * 13 + [_I] * 14 + [_F, _P],
     "lfbm5d_twokernel_plan": [_I, _I, _P],
     "lfbm5d_extract_groups": [_P] * 7 + [_I] * 10 + [_P],
     "lfbm5d_accumulate_groups": [_P] * 10 + [_I] * 10 + [_P],
@@ -44,6 +45,7 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of this process' nvcc run (None: cached)
+source_seconds = {}  # nvcc seconds per source of this process' build
 build_log = ""  # ptxas' report (registers, spills) of this process' build
 
 
@@ -63,7 +65,7 @@ def _nvcc() -> str:
 def build(src_dir: Path = SRC_DIR) -> Path:
     """Compile the sources of src_dir if this hash has no library yet; its
     path."""
-    global build_seconds, build_log
+    global build_seconds, build_log, source_seconds
     srcs = sorted(src_dir.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sorted(src_dir.glob("*.cu*")):
@@ -76,20 +78,25 @@ def build(src_dir: Path = SRC_DIR) -> Path:
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for src in srcs:
-        obj = out.with_name(f"{src.stem}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        objs.append(obj)
-        procs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+
+    def compile_one(cmd):
+        t = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        return res, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(cmds)) as pool:  # every nvcc at once
+        results = list(pool.map(compile_one, cmds))
     failed, log = [], []
-    for cmd, proc in procs:
-        _, err = proc.communicate()
-        log.append(err)
-        if proc.returncode:
-            failed.append(f"nvcc failed ({proc.returncode}): "
-                          f"{' '.join(cmd)}\n{err}")
+    source_seconds = {}
+    for src, cmd, (res, sec) in zip(srcs, cmds, results):
+        log.append(res.stderr)
+        source_seconds[src.name] = sec
+        if res.returncode:
+            failed.append(f"nvcc failed ({res.returncode}): "
+                          f"{' '.join(cmd)}\n{res.stderr}")
     if failed:
         raise RuntimeError("\n".join(failed))
     tmp = out.with_name(f"{out.name}.{tag}")

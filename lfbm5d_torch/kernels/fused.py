@@ -19,6 +19,28 @@ memory, so no group or Wiener factor goes to device memory; `group_plan`
 is the launch plan (cluster size, threads, shared bytes per CTA). Both share
 the plain version below.
 
+`fused_group_step_bf16` and `fused_group_step_banked_bf16` are the same
+kernels instantiated with the bfloat16 transform chain (BF16 in
+csrc/group_stage.cuh): the counterpart of the reference kernels with
+cdt = bfloat16 (its `pallas_bf16` engine), for grids of at most 128 SAIs.
+They take GroupTables built with chain=torch.bfloat16, whose tables are
+bf16-rounded (transforms/apply.py): the spatial 1-D factors in the packed
+tables, the dense angular kron in `dense`, which the kernels apply on the
+tensor cores (bf16 products, f32 sums). The group is rounded to bf16
+when loaded, and the spatial, angular and stack contractions of either
+direction each round their result to bf16 (the first spatial pass keeps
+its f32 intermediate); shrinkage, the weights, the Kaiser weighting and the
+accumulators stay f32. The plain version rounds at the same points
+(GroupTransforms.chain), so on CPU tensors the bf16 wrappers run it with
+those tables. Kernel and plain version add in
+different orders, so a value within f32 rounding of a bf16 rounding
+boundary may round the other way, and an HT coefficient near the threshold
+may flip with it: they agree by relative L2 on num/wden, not to f32
+rounding (bounds in chip_smoke.py, phase (p)). Their slices are the f32
+chain's; each CTA also holds one direction's dense angular table in shared
+memory (`group_plan(..., bf16=True)`, `table_words`), which at 9x9 leaves
+the cluster sizes unchanged.
+
 Contract (kernel and plain version alike), on the kernel's planar layout:
   noisy, basic   [C, A, Hp, Wp]   padded LF planes (basic: Wiener only)
   bidx           [A, V0, V1]      disparity argmin maps of this reference
@@ -69,6 +91,7 @@ MAX_CLUSTER = 16  # largest (non-portable) thread-block cluster on Hopper
 _ANG_SLOT = 19 * 19
 _STACK_SLOT = sum(4**lv for lv in range(5))
 KERNEL_TABLE_FLOATS = 3 * 64 + 4 * _ANG_SLOT + 2 * _STACK_SLOT
+DENSE_MAX_A = 128  # csrc/group_stage.cuh::KT: the bf16 chain's largest A
 _CHUNK = 256  # groups per gather in the plain version (memory bound only)
 
 
@@ -97,21 +120,33 @@ def banked_fits(sp: StepParams, a_h: int, a_w: int) -> bool:
             and a_h * a_w <= MAX_A_BANKED)
 
 
-def group_plan(n_sim: int, a_h: int, a_w: int,
-               wiener: bool) -> tuple[int, int, int]:
+def table_words(a: int) -> int:
+    """Words of the bf16 chain's shared angular table (a copy of
+    csrc/group_stage.cuh::table_words): one direction's dense table, 16*t
+    rows of 8*t bf16 pairs padded by 4, t = ceil(A/16), and 4 words to
+    align it to 16 bytes."""
+    t = -(-a // 16)
+    return 16 * t * (8 * t + 4) + 4
+
+
+def group_plan(n_sim: int, a_h: int, a_w: int, wiener: bool,
+               bf16: bool = False) -> tuple[int, int, int]:
     """(cluster size, threads, dynamic shared bytes per CTA) of the group
     kernels: a copy of csrc/group_stage.cuh::make_plan. Each CTA holds 64/cs
     spatial frequencies of the group ([regions][64/cs][ps] floats, ps =
-    (N*aH*(aW|1))|1, two regions for Wiener) and the origins of its share
-    of the N*A patches; the fewest CTAs that fit two 256-thread CTAs on an
-    SM, else one 512-thread CTA. Raises if no cluster holds the group."""
+    (N*aH*(aW|1))|1, two regions for Wiener), the origins of its share of
+    the N*A patches and, in the bf16 chain, its angular table; the fewest
+    CTAs that fit two 256-thread CTAs on an SM, else one 512-thread CTA.
+    Raises if no cluster holds the group."""
     ps = (n_sim * a_h * (a_w | 1)) | 1
+    table = table_words(a_h * a_w) if bf16 else 0
     for per_sm in (2, 1):
         limit = min(MAX_SMEM, SMEM_PER_SM // per_sm - SMEM_RESERVED)
         cs = 1
         while cs <= MAX_CLUSTER:
             patches = -(-n_sim * a_h * a_w // cs)
-            smem = 4 * ((2 if wiener else 1) * (64 // cs) * ps + 2 * patches)
+            smem = 4 * ((2 if wiener else 1) * (64 // cs) * ps + 2 * patches
+                        + table)
             if smem <= limit - STATIC_SMEM:
                 return cs, MAX_THREADS // per_sm, smem
             cs *= 2
@@ -138,21 +173,38 @@ def kernel_tables(parts, stack_f, stack_i, device) -> torch.Tensor:
     return out
 
 
+def dense_tables(f4: torch.Tensor, i4: torch.Tensor) -> torch.Tensor:
+    """The bf16 chain's dense angular tables as the kernels read them
+    (csrc/group_stage.cuh::angular_dense, the A operand of its tensor-core
+    products): [2, KP, KP] bfloat16, forward then inverse, row-major (q, a),
+    zero padded to KP = A rounded up to 16 (the tables hold bf16 values, so
+    the cast is exact)."""
+    a = f4.shape[0]
+    kp = -(-a // 16) * 16
+    out = torch.zeros((2, kp, kp), dtype=torch.bfloat16, device=f4.device)
+    out[0, :a, :a] = f4
+    out[1, :a, :a] = i4
+    return out
+
+
 @dataclass(frozen=True)
 class GroupTables:
     """Transform constants of one step: the plain version's GroupTransforms
     and Kaiser window, and the same tables laid out for the kernels."""
 
-    gt: GroupTransforms
+    gt: GroupTransforms  # gt.chain: the transform chain's dtype (or None)
     kaiser: torch.Tensor  # [k, k]
     packed: torch.Tensor | None  # f32 `kernel_tables`; None: no kernel fits
     a_h: int
     a_w: int
+    dense: torch.Tensor | None = None  # bf16 chain: `dense_tables`
 
     @staticmethod
     def build(sp: StepParams, a_h: int, a_w: int, dtype=torch.float32,
-              device="cpu") -> "GroupTables":
-        gt = GroupTransforms.build(sp, a_h, a_w, dtype=dtype, device=device)
+              device="cpu", chain: torch.dtype | None = None
+              ) -> "GroupTables":
+        gt = GroupTransforms.build(sp, a_h, a_w, dtype=dtype, device=device,
+                                   chain=chain)
         kai = torch.as_tensor(tm.kaiser_window(sp.k), dtype=dtype,
                               device=device)
 
@@ -166,7 +218,10 @@ class GroupTables:
         fits = max(a_h, a_w) <= MAX_SIDE_BANKED and sp.n_sim <= MAX_N
         packed = (kernel_tables(parts, gt.stack_f, gt.stack_i, device)
                   if fits else None)
-        return GroupTables(gt, kai, packed, a_h, a_w)
+        dense = (dense_tables(gt.f4, gt.i4)
+                 if gt.f4 is not None and a_h * a_w <= DENSE_MAX_A
+                 else None)
+        return GroupTables(gt, kai, packed, a_h, a_w, dense)
 
 
 def fused_group_step_plain(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
@@ -261,15 +316,75 @@ def _pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c,
             bidx.data_ptr(), None if doff is None else doff.data_ptr(),
             sim_y.data_ptr(), sim_x.data_ptr(), lvl.data_ptr(),
             mask.data_ptr(), sigma_c.data_ptr(), tables.packed.data_ptr(),
+            None if tables.dense is None else tables.dense.data_ptr(),
             num.data_ptr(), wden.data_ptr())
 
 
-def _launch_what(name, n_sim, a_h, a_w, wiener):
+def _launch_what(name, n_sim, a_h, a_w, wiener, bf16):
     """`name` and the shape and plan it launched, for a launch error."""
-    cs, threads, smem = group_plan(n_sim, a_h, a_w, wiener)
+    cs, threads, smem = group_plan(n_sim, a_h, a_w, wiener, bf16)
     return (f"{name} (N={n_sim}, {a_h}x{a_w} SAIs, "
             f"{'Wiener' if wiener else 'HT'}: clusters of {cs} CTAs x "
             f"{threads} threads, {smem} bytes of shared memory each)")
+
+
+def _group_step(fn, banked: bool, bf16: bool, noisy, basic, bidx, sim_y,
+                sim_x, lvl, mask, ref, sigma_c, tables, num, wden, k, nd,
+                lambda_3d, wiener, use_sd, doff) -> None:
+    """The four wrappers below: the plain version on CPU tensors, else the
+    fused or banked kernel in the f32 or bf16 chain; fn counts the
+    launches."""
+    chain = torch.bfloat16 if bf16 else None
+    if tables.gt.chain != chain:
+        raise ValueError(f"{fn.__name__} takes tables built with chain="
+                         f"{chain}, got {tables.gt.chain}")
+    if noisy.device.type == "cpu":
+        return fused_group_step_plain(
+            noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
+            num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
+            use_sd=use_sd, doff=doff,
+        )
+    what = "banked group kernel" if banked else "group kernel"
+    c, a, hp, wp, t, n_sim = _check(
+        noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c, tables,
+        num, wden, k, wiener, use_sd, what)
+    a_h, a_w = tables.a_h, tables.a_w
+    if bf16:
+        if a > DENSE_MAX_A:
+            raise ValueError(f"{fn.__name__}: the bf16 chain takes A <= "
+                             f"{DENSE_MAX_A}, got {a_h}x{a_w}")
+        if tables.dense is not None:
+            require(tables.dense, "tables.dense", torch.bfloat16, 3,
+                    noisy.device)
+    if banked:
+        if (n_sim > MAX_N or a_h > MAX_SIDE_BANKED or a_w > MAX_SIDE_BANKED
+                or a > MAX_A_BANKED):
+            raise ValueError(
+                f"{what} takes N <= {MAX_N}, aH, aW <= {MAX_SIDE_BANKED}, "
+                f"A <= {MAX_A_BANKED}; got N={n_sim}, {a_h}x{a_w}")
+    else:
+        if n_sim > MAX_N or a_h > MAX_SIDE or a_w > MAX_SIDE:
+            raise ValueError(f"{what} takes N, aH, aW <= 16; got N={n_sim}, "
+                             f"{a_h}x{a_w}")
+        smem = group_smem_bytes(n_sim, a, a_h, a_w)
+        if smem > MAX_SMEM:
+            raise ValueError(
+                f"{what}: N={n_sim}, A={a} is over the fused route's "
+                f"budget ({smem} > {MAX_SMEM} bytes); the banked kernel "
+                f"takes it")
+    if t == 0:
+        return
+    entry = "lfbm5d_group_step_banked" if banked else "lfbm5d_group_step"
+    with torch.cuda.device(noisy.device):  # launch_groups' host calls too
+        rc = getattr(library(), entry)(
+            *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
+                       sigma_c, tables, num, wden, wiener),
+            t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd,
+            ref, int(wiener), int(bf16), float(lambda_3d), stream_of(noisy),
+        )
+    if rc:
+        check(rc, _launch_what(fn.__name__, n_sim, a_h, a_w, wiener, bf16))
+    fn.launches += 1
 
 
 def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
@@ -279,37 +394,9 @@ def fused_group_step(noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref: int,
     """One reference SAI's group stage, accumulated into num/wden in place
     (contract in the module docstring). CPU tensors run the plain version;
     CUDA tensors launch the kernel."""
-    if noisy.device.type == "cpu":
-        return fused_group_step_plain(
-            noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
-            num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
-            use_sd=use_sd, doff=doff,
-        )
-    c, a, hp, wp, t, n_sim = _check(
-        noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c, tables,
-        num, wden, k, wiener, use_sd, "group kernel")
-    a_h, a_w = tables.a_h, tables.a_w
-    if n_sim > MAX_N or a_h > MAX_SIDE or a_w > MAX_SIDE:
-        raise ValueError(f"group kernel takes N, aH, aW <= 16; got N={n_sim}, "
-                         f"{a_h}x{a_w}")
-    smem = group_smem_bytes(n_sim, a, a_h, a_w)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"group kernel: N={n_sim}, A={a} is over the fused route's "
-            f"budget ({smem} > {MAX_SMEM} bytes); the banked kernel takes it"
-        )
-    if t == 0:
-        return
-    with torch.cuda.device(noisy.device):  # launch_groups' host calls too
-        rc = library().lfbm5d_group_step(
-            *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                       sigma_c, tables, num, wden, wiener),
-            t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd,
-            ref, int(wiener), float(lambda_3d), stream_of(noisy),
-        )
-    if rc:
-        check(rc, _launch_what("fused_group_step", n_sim, a_h, a_w, wiener))
-    fused_group_step.launches += 1
+    _group_step(fused_group_step, False, False, noisy, basic, bidx, sim_y,
+                sim_x, lvl, mask, ref, sigma_c, tables, num, wden, k, nd,
+                lambda_3d, wiener, use_sd, doff)
 
 
 def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
@@ -319,36 +406,34 @@ def fused_group_step_banked(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
                             doff=None) -> None:
     """`fused_group_step` for the `banked` route's larger groups (the same
     contract, plain version and cluster design; up to 19x19 SAIs)."""
-    if noisy.device.type == "cpu":
-        return fused_group_step_plain(
-            noisy, basic, bidx, sim_y, sim_x, lvl, mask, ref, sigma_c, tables,
-            num, wden, k=k, nd=nd, lambda_3d=lambda_3d, wiener=wiener,
-            use_sd=use_sd, doff=doff,
-        )
-    c, a, hp, wp, t, n_sim = _check(
-        noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask, sigma_c, tables,
-        num, wden, k, wiener, use_sd, "banked group kernel")
-    a_h, a_w = tables.a_h, tables.a_w
-    if (n_sim > MAX_N or a_h > MAX_SIDE_BANKED or a_w > MAX_SIDE_BANKED
-            or a > MAX_A_BANKED):
-        raise ValueError(
-            f"banked group kernel takes N <= {MAX_N}, aH, aW <= "
-            f"{MAX_SIDE_BANKED}, A <= {MAX_A_BANKED}; got N={n_sim}, "
-            f"{a_h}x{a_w}")
-    if t == 0:
-        return
-    with torch.cuda.device(noisy.device):  # launch_groups' host calls too
-        rc = library().lfbm5d_group_step_banked(
-            *_pointers(noisy, basic, bidx, doff, sim_y, sim_x, lvl, mask,
-                       sigma_c, tables, num, wden, wiener),
-            t, n_sim, a, a_h, a_w, c, hp, wp, hp - k + 1, wp - k + 1, nd,
-            ref, int(wiener), float(lambda_3d), stream_of(noisy),
-        )
-    if rc:
-        check(rc, _launch_what("fused_group_step_banked", n_sim, a_h, a_w,
-                               wiener))
-    fused_group_step_banked.launches += 1
+    _group_step(fused_group_step_banked, True, False, noisy, basic, bidx,
+                sim_y, sim_x, lvl, mask, ref, sigma_c, tables, num, wden, k,
+                nd, lambda_3d, wiener, use_sd, doff)
+
+
+def fused_group_step_bf16(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
+                          ref: int, sigma_c, tables: GroupTables, num, wden,
+                          *, k: int, nd: int, lambda_3d: float, wiener: bool,
+                          use_sd: bool = False, doff=None) -> None:
+    """`fused_group_step` with the bfloat16 transform chain (tables built
+    with chain=torch.bfloat16; module docstring)."""
+    _group_step(fused_group_step_bf16, False, True, noisy, basic, bidx, sim_y,
+                sim_x, lvl, mask, ref, sigma_c, tables, num, wden, k, nd,
+                lambda_3d, wiener, use_sd, doff)
+
+
+def fused_group_step_banked_bf16(noisy, basic, bidx, sim_y, sim_x, lvl, mask,
+                                 ref: int, sigma_c, tables: GroupTables, num,
+                                 wden, *, k: int, nd: int, lambda_3d: float,
+                                 wiener: bool, use_sd: bool = False,
+                                 doff=None) -> None:
+    """`fused_group_step_banked` with the bfloat16 transform chain."""
+    _group_step(fused_group_step_banked_bf16, True, True, noisy, basic, bidx,
+                sim_y, sim_x, lvl, mask, ref, sigma_c, tables, num, wden, k,
+                nd, lambda_3d, wiener, use_sd, doff)
 
 
 fused_group_step.launches = 0
 fused_group_step_banked.launches = 0
+fused_group_step_bf16.launches = 0
+fused_group_step_banked_bf16.launches = 0

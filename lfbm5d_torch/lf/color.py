@@ -1,5 +1,6 @@
-"""Color-space matrices: a copy of `lfbm5d_tpu/lf/color.py` (its
-`color_matrix` and `channel_sigma_scales`).
+"""Color-space matrices and transforms: a copy of `lfbm5d_tpu/lf/color.py`
+(`color_matrix`, `channel_sigma_scales`, `rgb_to_space`, `space_to_rgb`; the
+last two take tensors as well as arrays).
 
 The reference's `color_space_transform` (utilities.cpp, SURVEY.md §2 #5)
 supports RGB<->OPP/YUV/YCbCr. The OPP matrix rows are unit-L2-normalized so
@@ -12,6 +13,7 @@ block matching thresholds and shrinkage use the correct per-channel sigma.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _unit_rows(m: np.ndarray) -> np.ndarray:
@@ -71,3 +73,25 @@ def channel_sigma_scales(space: str) -> np.ndarray:
     m = color_matrix(space)
     return np.linalg.norm(m, axis=1)
 
+
+
+def _apply(lf, m: np.ndarray):
+    """lf @ m.T along the channel axis, in lf's dtype (and device)."""
+    if torch.is_tensor(lf):
+        return lf @ torch.as_tensor(m, dtype=lf.dtype, device=lf.device).T
+    return lf @ m.astype(lf.dtype).T
+
+
+def rgb_to_space(lf, space: str):
+    """The forward color transform along the last (channel) axis of an array
+    or tensor [..., 3]; [..., 1] and 'rgb' pass through."""
+    if lf.shape[-1] == 1 or space == "rgb":
+        return lf
+    return _apply(lf, color_matrix(space))
+
+
+def space_to_rgb(lf, space: str):
+    """The inverse of `rgb_to_space`."""
+    if lf.shape[-1] == 1 or space == "rgb":
+        return lf
+    return _apply(lf, np.linalg.inv(color_matrix(space)))

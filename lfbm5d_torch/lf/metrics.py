@@ -1,8 +1,9 @@
 """Quality metrics on [0, 255]-scale tensors, reduced on their device.
 
 Counterparts of `lfbm5d_tpu.lf.metrics`: `psnr` of `psnr_device` (only the
-scalar MSE leaves the device), `psnr_grid_device` (only aH*aW scalars do)
-and `rmse`. The reductions run in float64.
+scalar MSE leaves the device; `psnr_device` is the same function under the
+reference's name), `psnr_grid_device` (only aH*aW scalars do) and `rmse`.
+The reductions run in float64.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ def psnr(pred: torch.Tensor, ref, peak: float = 255.0) -> float:
     if mse == 0:
         return float("inf")
     return 10.0 * math.log10(peak * peak / mse)
+
+
+psnr_device = psnr
 
 
 def psnr_grid_device(pred, ref, peak: float = 255.0) -> np.ndarray:

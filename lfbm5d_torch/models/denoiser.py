@@ -21,6 +21,8 @@ class LFDenoiser:
 
     device None runs on the input tensor's device, or on the CUDA card for
     an array (raises without one; pass device="cpu" to run on the host).
+    engine: run_bm5d's ('auto', 'auto_bf16' for the bfloat16 transform
+    chain, or 'torch').
     """
 
     def __init__(self, params: DenoiseParams | None = None,

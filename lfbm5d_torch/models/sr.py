@@ -13,6 +13,7 @@ class LFSuperResolver:
 
     device None runs on the input tensor's device, or on the CUDA card for
     an array (raises without one; pass device="cpu" to run on the host).
+    engine: run_sr's ('auto', 'auto_bf16' or 'torch').
     """
 
     def __init__(self, params: SRParams | None = None,

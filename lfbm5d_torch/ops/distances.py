@@ -86,6 +86,19 @@ def self_distances(plane: torch.Tensor, ys, xs, k: int, n: int):
     return q.reshape(nsel * nsel, -1).T.contiguous()
 
 
+def self_distances_batch(planes: torch.Tensor, ys, xs, k: int, n: int):
+    """`self_distances` of every plane of planes [S, Hp, Wp]:
+    [S, len(ys)*len(xs), (2n+1)^2] int32."""
+    return torch.stack([self_distances(p, ys, xs, k, n) for p in planes])
+
+
+def self_distances_batched(plane: torch.Tensor, ys, xs, k: int, n: int):
+    """The reference's displacement-batched form of `self_distances` (same
+    results); `self_distances` here already batches a row of displacements
+    per pass."""
+    return self_distances(plane, ys, xs, k, n)
+
+
 def cross_argmin_all(ref_plane: torch.Tensor, planes: torch.Tensor, k: int,
                      nd: int):
     """First-occurrence disparity argmin maps of one reference plane against

@@ -5,6 +5,11 @@ Counterpart of `lfbm5d_tpu.ops.shrinkage`. Operates on 5D spectra
 size) carry exactly-zero coefficients (zero rows of the padded stack
 matrix), so they never pass the hard threshold and add nothing to the Wiener
 energy.
+
+With a chain dtype (transforms/apply.py) the spectra hold chain-rounded
+values; the shrinkage and weights are computed in the spectra's own dtype
+(f32 for the bf16 chain), and only the filtered spectrum is rounded to the
+chain again (a no-op for HT, whose kept coefficients are already rounded).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import torch
 
 from lfbm5d_torch.transforms.apply import (
     GroupTransforms,
+    chain_round,
     forward_5d,
     inverse_5d,
 )
@@ -34,16 +40,16 @@ def ht_shrink(spec: torch.Tensor, sigma_c: torch.Tensor, lambda_3d: float):
 
 
 def wiener_shrink(spec_noisy: torch.Tensor, spec_basic: torch.Tensor,
-                  sigma_c: torch.Tensor):
+                  sigma_c: torch.Tensor, chain: torch.dtype | None = None):
     """Empirical Wiener filter w = B^2/(B^2 + sigma_c^2) from the basic
-    spectrum, applied to the noisy spectrum.
+    spectrum, applied to the noisy spectrum (rounded to the chain dtype).
 
     Returns (filtered spectrum, weight [B, C]) with weight
     1/(sigma_c^2 * sum(w^2)), or 1.0 when the filter is identically zero.
     """
     b2 = spec_basic**2
     wien = b2 / (b2 + sigma_c**2)
-    filt = spec_noisy * wien
+    filt = chain_round(spec_noisy * wien, chain)
     wsum = (wien**2).sum(dim=_GROUP_AXES)
     w = torch.where(
         wsum > 0, 1.0 / (sigma_c**2 * wsum.clamp(min=1e-30)), 1.0
@@ -77,7 +83,8 @@ def filter_groups(g: torch.Tensor, gb: torch.Tensor | None, lvl: torch.Tensor,
     if gb is None:
         filt, wgt = ht_shrink(spec, sigma_c, lambda_3d)
     else:
-        filt, wgt = wiener_shrink(spec, forward_5d(gb, lvl, gt), sigma_c)
+        filt, wgt = wiener_shrink(spec, forward_5d(gb, lvl, gt), sigma_c,
+                                  gt.chain)
     est = inverse_5d(filt, lvl, gt)
     if use_sd:
         wgt = sd_weight(est, lvl, g.shape[2] * g.shape[3], g.shape[4])

@@ -222,8 +222,9 @@ def denoise_region_adaptive(noisy, sigma: float, *, engine: str = "auto",
     for block matching (or flat), `robust` on the weak-texture region,
     feather-composited.
 
-    noisy: [aH, aW, H, W, C] in [0, 255] (array or tensor); device as for
-    run_bm5d (None: the tensor's device, or the CUDA card). Returns (basic,
+    noisy: [aH, aW, H, W, C] in [0, 255] (array or tensor); device and
+    engine ('auto', 'auto_bf16' or 'torch') as for run_bm5d (device None:
+    the tensor's device, or the CUDA card). Returns (basic,
     final, info) with info's route ('matched' | 'robust' | 'region'), the
     probe stats, and, where a box was found, the crop box and its area
     fraction. params_matched / params_robust override the two presets.

@@ -14,6 +14,11 @@ Engines (mirroring the reference's `_resolve_engine`):
              'two_kernel') follows from the shapes, or from `fused` as in
              the reference (None: by shape; True: the fused family; False:
              the two-kernel path);
+  'auto_bf16' -> the same with the bfloat16 transform chain
+             (`build_kernel_step(chain_dtype=torch.bfloat16)`), the
+             counterpart of the reference's 'pallas_bf16': the bf16
+             instantiations of the group kernels on grids of at most 128
+             SAIs, the f32 step beyond; it refuses fused=False;
   'torch' -> `_build_step` here, plain torch on any device.
 Only the reference's 'single' execution tier exists: its launched and banked
 tiers work around TPU faults.
@@ -47,7 +52,7 @@ from lfbm5d_torch.ops.shrinkage import filter_groups
 from lfbm5d_torch.transforms import matrices as tm
 from lfbm5d_torch.transforms.apply import GroupTransforms
 
-ENGINES = ("auto", "torch")
+ENGINES = ("auto", "auto_bf16", "torch")
 
 
 def _dtype(dtype: str) -> torch.dtype:
@@ -135,16 +140,18 @@ def _build_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int, h: int,
 
 def _raw_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, wiener, dtype, engine,
               device, fused=None, doff_mode="direct"):
-    if engine == "auto":
+    if engine in ("auto", "auto_bf16"):
         from lfbm5d_torch.pipeline.engine import build_kernel_step
 
+        chain = torch.bfloat16 if engine == "auto_bf16" else None
         return build_kernel_step(sp, lambda_3d, a_h, a_w, h, w, c, wiener,
-                                 dtype, device, fused, doff_mode)
+                                 dtype, device, fused, doff_mode, chain)
     if fused is not None:
-        raise ValueError("fused selects a route of engine='auto'")
+        raise ValueError("fused selects a route of engine='auto' and "
+                         "'auto_bf16'")
     if doff_mode != "direct":
         raise ValueError("doff_mode selects the disparity sampling of "
-                         "engine='auto'")
+                         "engine='auto' and 'auto_bf16'")
     if engine == "torch":
         return _build_step(sp, lambda_3d, a_h, a_w, h, w, c, chunk, wiener,
                            dtype, device)
@@ -238,7 +245,8 @@ def build_denoise_fn(params: DenoiseParams, a_h: int, a_w: int, h: int,
                      fused: bool | None = None, doff_mode: str = "direct"):
     """The full per-LF pipeline (color -> HT -> Wiener -> inverse color) as
     fn(lf, sigma_c) -> (basic, final) for one geometry and device (None: the
-    CUDA card)."""
+    CUDA card). engine, fused, doff_mode: as for run_bm5d ('auto_bf16' runs
+    both steps' group stages in the bfloat16 chain)."""
     dt = _dtype(dtype)
     device = resolve_device(device)
     ht_raw = _raw_step(params.ht, params.lambda_3d, a_h, a_w, h, w, c,
@@ -283,12 +291,15 @@ def run_bm5d(noisy_lf, params: DenoiseParams, dtype: str = "float32",
     Returns (basic, final) tensors on `device` in the input color space.
     device None: the input tensor's device, or the CUDA card for an array
     (raises without one; pass device='cpu' to run on the host). engine:
-    'auto' (CUDA kernels for CUDA tensors, their plain versions on the CPU)
-    or 'torch' (plain torch everywhere). sigma_c optionally overrides the
+    'auto' (CUDA kernels for CUDA tensors, their plain versions on the CPU),
+    'auto_bf16' (the same with the bfloat16 transform chain in the group
+    stage at grids of at most 128 SAIs, the reference's 'pallas_bf16'; opt
+    in, f32 stays the default) or 'torch' (plain torch everywhere). sigma_c optionally overrides the
     per-channel noise stds (tensor [C]); params.sigma is then ignored.
-    fused picks the route of engine 'auto' (pipeline/engine.py): None by
-    shape, True the fused family (raises where no group kernel takes the
-    shape), False the two-kernel path. doff_mode picks its disparity
+    fused picks the route of engines 'auto' and 'auto_bf16'
+    (pipeline/engine.py): None by shape, True the fused family (raises
+    where no group kernel takes the shape), False the two-kernel path
+    ('auto_bf16' refuses it). doff_mode picks its disparity
     sampling: 'direct' (default), 'take' or 'dma' (pipeline/engine.py).
     """
     lf = torch.as_tensor(noisy_lf, dtype=_dtype(dtype),

@@ -38,6 +38,17 @@ of the builder's cache key):
 
 All three give the group stage the same integers, so the same num/den.
 
+`chain_dtype` (None or torch.bfloat16) is the transform chain's dtype, the
+counterpart of the reference's `group_dtype` (its `pallas_bf16` engine):
+with bfloat16 the fused and banked routes launch the bf16 instantiations of
+the group kernels (`fused_group_step_bf16`, `fused_group_step_banked_bf16`)
+and the two-kernel route runs its flat transforms and shrinkage with the
+same rounding points (transforms/apply.py). BM, selection, shrinkage math,
+the weights and the accumulators stay f32. As in the reference the chain
+applies to grids of at most 128 SAIs only: beyond, the step is the f32 one;
+and it refuses fused=False (the reference's group_dtype needs its fused
+engine).
+
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors. The group stage works on planar [C, A, Hp, Wp]
 copies of the LF. The fused and banked routes accumulate the denominator
@@ -69,6 +80,8 @@ from lfbm5d_torch.kernels.fused import (
     banked_fits,
     fused_group_step,
     fused_group_step_banked,
+    fused_group_step_banked_bf16,
+    fused_group_step_bf16,
     group_fits,
 )
 from lfbm5d_torch.kernels.gather import gather_rows, gather_rows_plain
@@ -88,6 +101,7 @@ from lfbm5d_torch.transforms.flat import (
 # set); about eight such tensors are alive at once.
 TWO_KERNEL_CHUNK_BYTES = 1 << 29
 DOFF_MODES = ("direct", "take", "dma")
+CHAIN_MAX_A = 128  # the bf16 chain's largest grid (the reference's one bank)
 
 
 def kaiser_conv(wden: torch.Tensor, k: int) -> torch.Tensor:
@@ -129,17 +143,31 @@ def resolve_route(sp: StepParams, a_h: int, a_w: int,
 def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
                       h: int, w: int, c: int, wiener: bool,
                       dtype: str = "float32", device: str | None = None,
-                      fused: bool | None = None, doff_mode: str = "direct"):
+                      fused: bool | None = None, doff_mode: str = "direct",
+                      chain_dtype: torch.dtype | None = None):
     """Returns fn(noisy_p, match_p, sigma_c, basic_p) -> (num, den), with
-    fn.route its route: 'fused', 'banked' or 'two_kernel'. device None is
-    the CUDA card (raises without one)."""
+    fn.route its route: 'fused', 'banked' or 'two_kernel', and fn.chain the
+    transform chain's dtype it runs (None: the step's dtype). device None is
+    the CUDA card (raises without one). chain_dtype: module docstring."""
     k, n, nd, n_sim, pad = sp.k, sp.n_search, sp.n_disp, sp.n_sim, sp.pad
     dt = {"float32": torch.float32, "float64": torch.float64}[dtype]
     if doff_mode not in DOFF_MODES:
         raise ValueError(f"doff_mode must be one of {DOFF_MODES}, got "
                          f"{doff_mode!r}")
-    dev = resolve_device(device)
+    if chain_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"chain_dtype must be None or torch.bfloat16, got "
+                         f"{chain_dtype}")
+    if chain_dtype is not None and fused is False:
+        raise ValueError("chain_dtype needs the fused family of routes "
+                         "(fused=None or True), as the reference's "
+                         "group_dtype needs its fused engine")
     a = a_h * a_w
+    if chain_dtype is not None and a > CHAIN_MAX_A:
+        # the f32 step itself (the cache key of denoise._raw_step's call)
+        return build_kernel_step(sp, lambda_3d, a_h, a_w, h, w, c, wiener,
+                                 dtype, device, fused, doff_mode, None)
+    chain = chain_dtype
+    dev = resolve_device(device)
     v1 = w + 2 * pad - k + 1  # argmin map width
     route = resolve_route(sp, a_h, a_w, fused)
     ys = ind_initialize(h, k, sp.p) + pad
@@ -149,7 +177,8 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
     pos_y = torch.as_tensor(np.repeat(ys, len(xs)), device=dev)
     pos_x = torch.as_tensor(np.tile(xs, len(ys)), device=dev)
     disp_self = torch.as_tensor(displacements(n), device=dev)  # int32
-    tables = GroupTables.build(sp, a_h, a_w, dtype=dt, device=dev)
+    tables = GroupTables.build(sp, a_h, a_w, dtype=dt, device=dev,
+                               chain=chain)
     refs = [int(r) for r in ref_sai_grid(a_h, a_w, sp.p_ang)]
 
     def flat_mask(noisy_pl, sigma_c):
@@ -185,7 +214,8 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
         return gather(table, rows).view(*sim_y.shape, a)
 
     if route == "two_kernel":
-        ft = FlatTransforms.build(sp, a_h, a_w, dtype=dt, device=dev)
+        ft = FlatTransforms.build(sp, a_h, a_w, dtype=dt, device=dev,
+                                  chain=chain)
         kai = tables.kaiser.reshape(-1)
         group_bytes = c * n_sim * k * k * a * dt.itemsize
         chunk = max(1, TWO_KERNEL_CHUNK_BYTES // group_bytes)
@@ -216,7 +246,8 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
                     spec_b = forward_flat(
                         grp_b.view(c * g, n_sim, k * k, a), lv_c, ft)
                     filt, wgt = wiener_shrink(canon(spec, g),
-                                              canon(spec_b, g), sigma_c)
+                                              canon(spec_b, g), sigma_c,
+                                              chain)
                 else:
                     filt, wgt = ht_shrink(canon(spec, g), sigma_c, lambda_3d)
                 est = inverse_flat(
@@ -231,8 +262,12 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
                                         sx, mk, r, num, den, k=k, nd=nd,
                                         doff=dc)
     else:
-        group_fn = (fused_group_step if route == "fused"
-                    else fused_group_step_banked)
+        group_fn = {
+            ("fused", None): fused_group_step,
+            ("banked", None): fused_group_step_banked,
+            ("fused", torch.bfloat16): fused_group_step_bf16,
+            ("banked", torch.bfloat16): fused_group_step_banked_bf16,
+        }[route, chain]
 
         def group_stage(noisy_pl, basic_pl, bidx, doff, sim_y, sim_x, lvl,
                         mask, r, sigma_c, num, wden):
@@ -258,6 +293,7 @@ def build_kernel_step(sp: StepParams, lambda_3d: float, a_h: int, a_w: int,
         return num.permute(1, 2, 3, 0), den.permute(1, 2, 3, 0)
 
     step.route = route
+    step.chain = chain
     step.flat_mask = flat_mask
     step.block_match = block_match
     step.slot_table = slot_table

@@ -33,7 +33,8 @@ def run_sr(lr_lf, params: SRParams, on_iteration=None, dtype: str = "float32",
 
     Returns the HR estimate [aH, aW, scale*h, scale*w, C] on `device` (None:
     the input tensor's device, or the CUDA card for an array; raises without
-    one unless device='cpu')."""
+    one unless device='cpu'). engine: run_bm5d's ('auto', 'auto_bf16' or
+    'torch'), for every iteration's denoise."""
     lr = torch.as_tensor(lr_lf, dtype=_dtype(dtype),
                          device=resolve_device(device, lr_lf))
     hr = upsample(lr, params.scale)

@@ -67,8 +67,9 @@ def stream_denoise_dirs(jobs, params: DenoiseParams, a_h: int, a_w: int,
     are decoded ahead of the device; encodes run behind it. on_fail: 'skip'
     leaves no output for a failed LF; 'identity' writes the noisy input;
     'raise' aborts the stream. device: where the LFs are denoised (None:
-    the CUDA card; raises without one unless device='cpu'). `_run`
-    overrides the per-LF device call (tests inject faults through it).
+    the CUDA card; raises without one unless device='cpu'). engine:
+    run_bm5d's ('auto', 'auto_bf16' or 'torch'). `_run` overrides the
+    per-LF device call (tests inject faults through it).
 
     Returns a StreamReport (counts, failures, wall and device seconds).
     """

@@ -50,7 +50,8 @@ def denoise_batch(lfs, params: DenoiseParams, devices=None,
     without one; pass devices=['cpu'] to run on the host). Returns
     (basic, final) batches stacked on devices[0]; with return_report=True
     also a list of {index, attempts, error} entries for the LFs that fell
-    back to the identity estimate.
+    back to the identity estimate. engine: run_bm5d's ('auto', 'auto_bf16'
+    or 'torch').
     """
     if on_fail not in ("raise", "identity"):
         raise ValueError(f"on_fail must be 'raise' or 'identity', got "

@@ -14,10 +14,19 @@ These are plain matrix products outside any kernel (XLA matmuls in the
 reference), so they run as torch.matmul. They run in full fp32 only while
 TF32 is off for matmuls (`torch.backends.cuda.matmul.allow_tf32`, False by
 default): TF32 keeps about three decimal digits, which moves HT decisions.
+
+With a chain dtype (`chain`, transforms/apply.py) each product is still an
+f32 matmul, on chain-valued operands, and its result is rounded to the
+chain: the same rounding points and tables as the group kernels' chain.
+The angular table is the rounded dense kron, as the reference's; the
+spatial one is the kron of the rounded 1-D factors (exact in f32: a product
+of two bf16 values has at most 16 significant bits), so the flat chain
+computes what the group kernels do up to f32 summation order.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,6 +34,11 @@ import torch
 
 from lfbm5d_torch.config import StepParams
 from lfbm5d_torch.transforms import matrices as tm
+from lfbm5d_torch.transforms.apply import (
+    chain_round,
+    chain_stack_matrices,
+    round_table,
+)
 
 
 @dataclass(frozen=True)
@@ -35,24 +49,29 @@ class FlatTransforms:
     k4i: torch.Tensor
     stack_f: torch.Tensor  # [log2(N)+1, N, N]
     stack_i: torch.Tensor
+    chain: torch.dtype | None = None  # None: the group's own dtype
 
     @staticmethod
     def build(params: StepParams, a_h: int, a_w: int, dtype=torch.float32,
-              device="cpu") -> "FlatTransforms":
-        f2, i2 = tm.transform_pair(params.tau_2d, params.k)
+              device="cpu", chain: torch.dtype | None = None
+              ) -> "FlatTransforms":
+        def r(m):
+            return round_table(m, chain)
+
+        f2, i2 = map(r, tm.transform_pair(params.tau_2d, params.k))
         if params.tau_4d == "id":
             f4 = i4 = np.eye(a_h * a_w)
         else:
             f4s, i4s = tm.transform_pair(params.tau_4d, a_h)
             f4t, i4t = tm.transform_pair(params.tau_4d, a_w)
-            f4, i4 = np.kron(f4s, f4t), np.kron(i4s, i4t)
-        sf, si = tm.stack_matrices(params.tau_5d, params.n_sim)
+            f4, i4 = r(np.kron(f4s, f4t)), r(np.kron(i4s, i4t))
+        sf, si = chain_stack_matrices(params, chain)
 
         def t(x):
             return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
         return FlatTransforms(t(np.kron(f2, f2)), t(np.kron(i2, i2)), t(f4),
-                              t(i4), t(sf), t(si))
+                              t(i4), t(sf), t(si), chain)
 
 
 def _stack(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -63,15 +82,17 @@ def _stack(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def forward_flat(g: torch.Tensor, lvl: torch.Tensor,
                  t: FlatTransforms) -> torch.Tensor:
     """g: [B, N, k*k, A]; lvl: [B] integer stack-size log2. The 5D
-    spectrum, same layout."""
-    g = torch.matmul(t.k2f, g)
-    g = torch.matmul(g, t.k4f.T)
-    return _stack(t.stack_f[lvl], g)
+    spectrum, same layout (each product rounded to the chain dtype)."""
+    r = functools.partial(chain_round, chain=t.chain)
+    g = r(torch.matmul(t.k2f, r(g)))
+    g = r(torch.matmul(g, t.k4f.T))
+    return r(_stack(t.stack_f[lvl], g))
 
 
 def inverse_flat(g: torch.Tensor, lvl: torch.Tensor,
                  t: FlatTransforms) -> torch.Tensor:
     """Inverse of forward_flat: stack, angular, spatial."""
-    g = _stack(t.stack_i[lvl], g)
-    g = torch.matmul(g, t.k4i.T)
-    return torch.matmul(t.k2i, g)
+    r = functools.partial(chain_round, chain=t.chain)
+    g = r(_stack(t.stack_i[lvl], g))
+    g = r(torch.matmul(g, t.k4i.T))
+    return r(torch.matmul(t.k2i, g))

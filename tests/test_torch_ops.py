@@ -96,3 +96,29 @@ def test_fallback_shrink_2d_matches(pilot, tau_2d):
     )
     assert got.shape == x.shape
     _close(got, want)
+
+
+@pytest.mark.parametrize("form", ["batch", "batched"])
+def test_self_distances_batch_forms_match_reference(form):
+    """self_distances_batch (every plane of a stack) and
+    self_distances_batched (the displacement-batched form), float64."""
+    from lfbm5d_tpu.lf.pad import pad_lf as np_pad
+    from lfbm5d_tpu.ops import distances as jd
+    from lfbm5d_torch.ops import distances as td
+
+    clean = synthetic_lf(2, 2, 20, 24, channels=1, seed=3)
+    planes = np_pad(add_noise_np(clean, 20.0, seed=4), 4)[..., 0].reshape(
+        4, 28, 32)
+    ys = ind_initialize(20, 8, 3) + 4
+    xs = ind_initialize(24, 8, 3) + 4
+    if form == "batch":
+        got = td.self_distances_batch(torch.as_tensor(planes), ys, xs, 8, 4)
+        want = jd.self_distances_batch(jnp.asarray(planes), jnp.asarray(ys),
+                                       jnp.asarray(xs), 8, 4)
+    else:
+        got = td.self_distances_batched(torch.as_tensor(planes[1]), ys, xs,
+                                        8, 4)
+        want = jd.self_distances_batched(jnp.asarray(planes[1]), ys, xs, 8,
+                                         4)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
