@@ -6,23 +6,33 @@ Usage (from the repository root, one CUDA card):
     python chip_smoke.py                    the phases below
     python chip_smoke.py --ab PARENT        the kernels of a parent checkout
         (PARENT, its lfbm5d_torch/csrc built apart) against this tree's, in
-        turns: the two BM kernels at (b)'s four shapes (outputs equal),
-        extract / fused accumulate at (e)'s table shape (extract equal,
-        accumulate within 1e-5), and the row gather at (j)'s flagship shape
-        (outputs equal, index_select beside them; see `ab`), and both trees'
-        nvcc seconds per source
+        turns: the two BM kernels at (b)'s four shapes (outputs equal); both
+        group kernels (lfbm5d_group_step at the flagship's reference 0,
+        lfbm5d_group_step_banked at 9x9x64x96 `default`), f32 and bf16
+        chains, HT and Wiener, on the same BM outputs (bf16 outputs within
+        1e-3 relative L2 of each other, f32 within 1e-4), with the times,
+        HT + Wiener per chain and new/parent; extract / fused accumulate at
+        (e)'s table shape (extract equal, accumulate within 1e-5), and the
+        row gather at (j)'s flagship shape (outputs equal, index_select
+        beside them; see `ab`), and both trees' nvcc seconds per source
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
         the device's idle share and device time by kernel group (cells
         `flagship-dma`: the flagship with doff_mode="dma"; `sr-flagship`:
-        the x2 SR of phase (l))
+        the x2 SR of phase (l)); the cell `counters` builds the group
+        kernels with per-phase clock64 counters (-DLFBM5D_PHASE_CLOCKS,
+        build/kernels_clocks/) and prints each chain's cycles per (group,
+        channel) step by phase at the flagship's reference 0 and 9x9x64x96
+        `default`, HT and Wiener (`phase_clocks`)
 
 Phases; any failure exits non-zero without the final "ok" line:
   (a) card, versions, and the build of lfbm5d_torch/csrc/*.cu (nvcc, sm_90a;
       seconds per source, the group kernels' with both chains): ptxas
       registers and spill per kernel (the BM kernels at k=8, and a summary
-      of k=1..16; the group kernels as <f32> and <bf16>); the launch plan
+      of k=1..16; the group kernels as <f32> and <bf16, tiles> for the
+      bf16 chain's eight tile counts), failing if a bf16 group kernel
+      spills; the launch plan
       of every group-kernel shape the phases launch (the bf16
       instantiations' at 9x9) (cluster size, threads, shared bytes per CTA, max active
       clusters, CTAs per SM), the Python copy (kernels/fused.py::group_plan)
@@ -125,9 +135,9 @@ Phases; any failure exits non-zero without the final "ok" line:
       `default` (N=16, route banked), with kernel ms, plain ms and the
       bound beside the f32 kernel's ms on the same reference, timed in
       turns (f32, bf16, bf16, f32), and untimed at the tile counts and
-      grids no other phase launches (8x8 matched and `default`: even sides,
-      padded slice columns; 11x11: A = 121, eight tiles; 1x1 at flat_tau
-      0); the
+      grids no other phase launches (8x8 matched and `default`: even sides;
+      1x1 at flat_tau 0, 5x5, 6x6, 10x10 and 11x11: A = 1, 25, 36, 100 and
+      121, tile counts 1, 2, 3, 7 and 8); the
       flagship 9x9x434x625 matched
       through run_bm5d(engine="auto_bf16"), one warm and one timed run:
       s/LF, Mpix/s, peak memory, final PSNR >= 28.37 dB and within 0.02 dB
@@ -231,6 +241,16 @@ KERNEL_GROUPS = (
     ("sort", "argsort (select_similar)"),
 )
 
+PHASE_NAMES = ("angular tables to shared", "scatter (loads, spatial fwd, "
+               "DSMEM stores)", "angular forward", "stack and shrink",
+               "block_sum", "angular inverse", "cluster barriers (waiting)",
+               "fetch, spatial inverse, atomics", "rest (prologue, origins, "
+               "weights)")
+# (label, preset, angular side, H, W, banked): the group-kernel cells of
+# `--profile counters` and `--ab`
+CLOCK_CASES = (("flagship reference 0", "matched", 9, 434, 625, False),
+               ("9x9x64x96 default", "default", 9, 64, 96, True))
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -249,10 +269,12 @@ def ptxas_lines(log: str):
     name, spill = None, ""
     for line in log.splitlines():
         m = re.search(r"entry function '\w*\d([a-z_]+_kernel)"
-                      r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E)?", line)
+                      r"(?:ILi(\d+)E(?:Lb([01])E)?|ILb([01])E(?:Li(\d+)E)?)?",
+                      line)
         if m:
             name = m.group(1) + (
-                f"<{'bf16' if m.group(4) == '1' else 'f32'}>"
+                f"<{'bf16' if m.group(4) == '1' else 'f32'}"
+                f"{f', {m.group(5)}' if m.group(5) not in (None, '0') else ''}>"
                 if m.group(4) is not None else
                 "" if m.group(2) is None else f"<{m.group(2)}>"
                 if m.group(3) is None else
@@ -283,6 +305,31 @@ def print_ptxas(log: str, tag: str) -> None:
         print(f"{tag} ptxas {name}<1..16{flag}>: {len(rows)} instantiations, "
               f"{min(regs)}-{max(regs)} registers, spill stores at k="
               f"{spilled or 'none'}")
+
+
+def check_bf16_spills(log: str, tag: str) -> None:
+    """Fails unless ptxas reports every bf16 group-kernel instantiation (one
+    per tile count 1..8, of each kernel) with 0 bytes of spill stores and
+    loads; prints registers and spills per kernel."""
+    found = {}
+    for line in ptxas_lines(log):
+        name = line.split(":", 1)[0]
+        kern = name.split("<", 1)[0]
+        if kern in ("group_kernel", "banked_kernel") and "<bf16" in name:
+            m = re.search(r"(\d+) registers.*?(\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            found.setdefault(kern, []).append(
+                (name, *map(int, m.groups())) if m else (name, -1, -1, -1))
+    for kern in ("group_kernel", "banked_kernel"):
+        rows = found.get(kern, [])
+        print(f"{tag} bf16 spills: {kern}: " + "; ".join(
+            f"{n[len(kern):]} {r} registers, {st} / {ld} B spill stores / "
+            f"loads" for n, r, st, ld in rows))
+        if len(rows) != 8:
+            raise AssertionError(f"{tag}: ptxas reported {len(rows)} bf16 "
+                                 f"instantiations of {kern}, not 8")
+        if any(st or ld for _, _, st, ld in rows):
+            raise AssertionError(f"{tag}: a bf16 {kern} spills")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -694,7 +741,33 @@ def group_setup(params, x, basic, sigma_c, wiener, chain=None):
 
     return dict(sp=sp, step=step, noisy_pl=noisy_pl, basic_pl=basic_pl,
                 bidx=bidx, sim_y=sim_y, sim_x=sim_x, lvl=lvl, mask=mask,
-                num=num, wden=wden, run=run)
+                num=num, wden=wden, run=run, ref=r, lam=lam,
+                sigma_c=sigma_c, wiener=wiener)
+
+
+def raw_group_step(lib, g, banked, bf16) -> None:
+    """One launch of a group kernel's C entry point from `lib` (this tree's,
+    the counter build or a parent's) on group_setup g's inputs, num/wden
+    zeroed first: what the wrapper launches, without it."""
+    from lfbm5d_torch.kernels import _build
+    from lfbm5d_torch.kernels.fused import _pointers
+
+    noisy, sp, tables = g["noisy_pl"], g["sp"], g["step"].tables
+    c, a, hp, wp = noisy.shape
+    t, n_sim = g["sim_y"].shape
+    g["num"].zero_()
+    g["wden"].zero_()
+    entry = "lfbm5d_group_step_banked" if banked else "lfbm5d_group_step"
+    rc = getattr(lib, entry)(
+        *_pointers(noisy, g["basic_pl"], g["bidx"], None, g["sim_y"],
+                   g["sim_x"], g["lvl"], g["mask"], g["sigma_c"], tables,
+                   g["num"], g["wden"], g["wiener"]),
+        t, n_sim, a, tables.a_h, tables.a_w, c, hp, wp, hp - sp.k + 1,
+        wp - sp.k + 1, sp.n_disp, g["ref"], int(g["wiener"]), int(bf16),
+        float(g["lam"]), _build.stream_of(noisy))
+    if rc:
+        raise RuntimeError(f"{entry}: CUDA error {rc} "
+                           f"({lib.lfbm5d_error_string(rc).decode()})")
 
 
 def plan_line(lib, fn_name, n_sim, a_h, a_w, wiener) -> str:
@@ -1192,10 +1265,13 @@ def phase_bf16(kernels, lib, params, sig, m, d_final, h_ref):
         group_check("(p) 9x9x64x96", params, small, basic, sig, wiener,
                     "fused_group_step_bf16", lib, timed=False,
                     rel_max=GROUP_BF16_REL_MAX)
-    # the tensor-core angular pass at other tile counts and an even grid
-    # (padded slice columns), on both kernels
+    # the tensor-core angular pass at the other tile counts (one kernel
+    # instantiation each: 1x1 1, 5x5 2, 6x6 3, 8x8 4, 10x10 7, 11x11 8) and
+    # even grids, on both kernels
     for side, h, w, preset in ((8, 32, 48, "matched"), (8, 32, 48, "default"),
-                               (11, 24, 32, "matched"), (1, 32, 32, "matched")):
+                               (11, 24, 32, "matched"), (1, 32, 32, "matched"),
+                               (5, 24, 32, "matched"), (6, 24, 32, "matched"),
+                               (10, 24, 32, "matched")):
         pp = preset_denoise_params(preset, 25.0)
         if side == 1:  # one SAI: every group is flat at the preset's flat_tau
             pp = pp.replace(ht=pp.ht.replace(flat_tau=0.0),
@@ -1682,12 +1758,59 @@ def ab_gather(libs, params, x, sigma_c):
                              "disagree")
 
 
+def ab_groups(libs, m, sig) -> None:
+    """--ab: both trees' group kernels (lfbm5d_group_step at the flagship's
+    reference 0, lfbm5d_group_step_banked at 9x9x64x96 `default`), both
+    chains, HT and Wiener, on the same BM outputs and tables: outputs
+    within GROUP_BF16_REL_MAX (bf16) / GROUP_REL_MAX (f32) relative L2 of
+    each other, times in turns, and per chain HT + Wiener summed with the
+    ratio new / parent."""
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params
+
+    for label, preset, side, h, w, banked in CLOCK_CASES:
+        params = preset_denoise_params(preset, 25.0, chunk=128)
+        noisy, clean = lf_on_card(side, h, w, 1)
+        x, basic_w = noisy @ m.T, clean @ m.T
+        sums = {}
+        for basic, wiener in ((None, False), (basic_w, True)):
+            for chain in (None, torch.bfloat16):
+                bf16 = chain is not None
+                g = group_setup(params, x, basic, sig, wiener, chain)
+                outs = []
+                for lib in libs:
+                    raw_group_step(lib, g, banked, bf16)
+                    outs.append((g["num"].clone(), g["wden"].clone()))
+                rel = max(_rel(outs[1][i], outs[0][i]) for i in (0, 1))
+                tag = "bf16" if bf16 else "f32"
+                p_ms, n_ms = in_turns(
+                    f"{label} {'Wiener' if wiener else 'HT'} {tag} group "
+                    f"kernel (rel {rel:.2e})",
+                    lambda lib, _o: raw_group_step(lib, g, banked, bf16),
+                    libs, (None, None))
+                old_ms, new_ms = sums.get(tag, (0.0, 0.0))
+                sums[tag] = (old_ms + p_ms, new_ms + n_ms)
+                if rel > (GROUP_BF16_REL_MAX if bf16 else GROUP_REL_MAX):
+                    raise AssertionError(f"{label} {tag}: the parent's and "
+                                         f"this tree's group kernels disagree")
+                del g, outs
+        for tag, (p_ms, n_ms) in sums.items():
+            print(f"ab {label} {tag} group kernels, HT + Wiener: parent "
+                  f"{p_ms:.3f} ms, new {n_ms:.3f} ms, new/parent "
+                  f"{n_ms / p_ms:.3f}x")
+        print(f"ab {label}: bf16/f32 new {sums['bf16'][1] / sums['f32'][1]:.3f}"
+              f"x, parent {sums['bf16'][0] / sums['f32'][0]:.3f}x")
+        del noisy, clean, x, basic_w
+
+
 def ab(parent_dir: str) -> int:
     """--ab PARENT: the parent tree's kernels (its lfbm5d_torch/csrc built
     apart; the same C entry points) against this tree's, on the same inputs
     and preallocated outputs, in turns (`in_turns`): the two BM kernels at
-    (b)'s four shapes, outputs equal; extract and fused accumulate at (e)'s
-    table shape (`ab_two_kernel`)."""
+    (b)'s four shapes, outputs equal; both group kernels in both chains
+    (`ab_groups`); extract and fused accumulate at (e)'s table shape
+    (`ab_two_kernel`); the row gather (`ab_gather`)."""
     import ctypes
     from pathlib import Path
 
@@ -1704,11 +1827,14 @@ def ab(parent_dir: str) -> int:
     print_ptxas(_build.build_log, "new")
     plib = ctypes.CDLL(str(_build.build(Path(parent_dir) / "lfbm5d_torch"
                                         / "csrc")))
+    plib.lfbm5d_error_string.argtypes = [ctypes.c_int]
+    plib.lfbm5d_error_string.restype = ctypes.c_char_p
     print_ptxas(_build.build_log, "parent")
     print("nvcc seconds per source, this tree: " + ", ".join(
         f"{k} {v:.1f}" for k, v in new_seconds.items()) + "; parent: " +
         ", ".join(f"{k} {v:.1f}" for k, v in _build.source_seconds.items()))
     for name in ("lfbm5d_self_distances", "lfbm5d_cross_argmin",
+                 "lfbm5d_group_step", "lfbm5d_group_step_banked",
                  "lfbm5d_extract_groups", "lfbm5d_accumulate_groups",
                  "lfbm5d_gather_rows"):
         getattr(plib, name).argtypes = _build._SIGNATURES[name]
@@ -1754,6 +1880,7 @@ def ab(parent_dir: str) -> int:
             if not equal:
                 raise AssertionError(f"{name} ({label}): the parent's and "
                                      f"this tree's outputs differ")
+    ab_groups(libs, m, _sigma(dev))
     params = preset_denoise_params("matched", 25.0, chunk=128)
     ab_two_kernel(libs, params, x17, _sigma(dev))
     ab_gather(libs, params, x_flag, _sigma(dev))
@@ -1767,13 +1894,75 @@ def _sigma(dev):
     return _sigma_channels(25.0, "opp", 3, "float32", dev)
 
 
+def phase_clocks() -> None:
+    """--profile `counters`: the group kernels of the counter build
+    (_build.library(clocks=True), csrc/group_stage.cuh's PHASE marks) at
+    the flagship's reference 0 (fused) and 9x9x64x96 `default` reference 0
+    (banked), HT and Wiener, f32 and bf16 chains: thread 0's cycles per
+    phase summed over the CTAs, as shares of the CTAs' cycles and per
+    (group, channel) step of a CTA. Five launches each after one warm
+    launch (counters reset between)."""
+    import ctypes
+
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params
+    from lfbm5d_torch.kernels import _build
+    from lfbm5d_torch.lf import color_matrix
+
+    t0 = time.perf_counter()
+    lib = _build.library(clocks=True)
+    print(f"counters: counter build loaded in {time.perf_counter() - t0:.1f}"
+          f" s")
+    print_ptxas(_build.build_log, "counters")
+    dev = torch.device("cuda:0")
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
+    sig = _sigma(dev)
+    out = (ctypes.c_uint64 * (len(PHASE_NAMES) + 2))()
+    for label, preset, side, h, w, banked in CLOCK_CASES:
+        params = preset_denoise_params(preset, 25.0, chunk=128)
+        noisy, clean = lf_on_card(side, h, w, 1)
+        x = noisy @ m.T
+        basic_w = clean @ m.T  # the Wiener guide: the clean LF, as (c)
+        read = lib.lfbm5d_group_clocks_banked if banked else \
+            lib.lfbm5d_group_clocks
+        for basic, wiener in ((None, False), (basic_w, True)):
+            for chain in (None, torch.bfloat16):
+                g = group_setup(params, x, basic, sig, wiener, chain)
+                bf16 = chain is not None
+                raw_group_step(lib, g, banked, bf16)
+                _build.check(read(out, 1), "phase clocks")
+                reps = 5
+                for _ in range(reps):
+                    raw_group_step(lib, g, banked, bf16)
+                _build.check(read(out, 1), "phase clocks")
+                cyc = list(out)
+                total = sum(cyc[:len(PHASE_NAMES)])
+                steps = max(cyc[len(PHASE_NAMES)], 1)
+                print(f"counters {label} {'Wiener' if wiener else 'HT'} "
+                      f"{'bf16' if bf16 else 'f32'} "
+                      f"({'banked' if banked else 'fused'}): "
+                      f"{steps // reps} (group, channel) steps over the CTAs"
+                      f" per launch, {total / steps:.0f} cycles per step of "
+                      f"a CTA (CTA lifetime {cyc[-1] / steps:.0f})")
+                print("  " + "; ".join(
+                    f"{n} {c / total:.1%} ({c / steps:.0f})"
+                    for n, c in zip(PHASE_NAMES, cyc)))
+                del g
+        del noisy, clean, x, basic_w
+
+
 def profile(names) -> None:
-    """Device time by kernel group of one warm run per cell."""
+    """Device time by kernel group of one warm run per cell; the cell
+    `counters` runs phase_clocks instead."""
     import torch
 
     from lfbm5d_torch import preset_denoise_params
 
     print(card_line())
+    if "counters" in names:
+        phase_clocks()
+        names = [n for n in names if n != "counters"]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name in names:
@@ -1832,7 +2021,8 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv[:1] == ["--profile"]:
-        profile(argv[1].split(",") if len(argv) > 1 else list(CELLS))
+        profile(argv[1].split(",") if len(argv) > 1
+                else list(CELLS) + ["counters"])
         return 0
     if argv[:1] == ["--ab"] and len(argv) == 2:
         return ab(argv[1])
@@ -1892,6 +2082,11 @@ def main(argv) -> int:
             print("(a) nvcc seconds per source (in parallel): " + ", ".join(
                 f"{k} {v:.1f}" for k, v in _build.source_seconds.items()))
         print_ptxas(_build.build_log, "(a)")
+        if _build.build_log:
+            check_bf16_spills(_build.build_log, "(a)")
+        else:
+            print("(a) the library was built by an earlier run: no ptxas "
+                  "report to check for spills")
         plan_table(lib)
         bm_plan_table(lib)
         twokernel_plan_table(lib)

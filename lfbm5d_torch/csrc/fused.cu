@@ -41,7 +41,16 @@
 // group_stage.cuh, except that the angular transform is one dense
 // contraction over the SAIs with the bf16-rounded kron table (kang), as the
 // reference's, run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// sums); the plan and shared memory are the f32 chain's.
+// sums). Its design for this card: the slice is bf16 (every value the
+// chain stores is bf16-exact, so it is lossless and halves the DSMEM and
+// shared bytes), laid out so ldmatrix builds the B fragments and
+// stmatrix.trans writes the outputs straight from and to the item rows;
+// both dense tables stay in shared memory for the kernel's life (cp.async
+// once per CTA, not per group and channel); and each table fragment a warp
+// reads feeds the products of four 8-item tiles (two at A > 112). It is
+// instantiated per tile count of the table (group_kernel<true, 1..8>,
+// picked by with_tiles), so each instantiation inlines one copy of the
+// tensor-core pass and none spills at 128 registers.
 
 #include "group_stage.cuh"
 
@@ -49,11 +58,12 @@ namespace {
 
 constexpr int MAXG = 16;
 
-// BF16: the bfloat16 transform chain (group_stage.cuh).
-template <bool BF16>
+// BF16: the bfloat16 transform chain (group_stage.cuh), instantiated per
+// tile count TILES of its angular table (with_tiles).
+template <bool BF16, int TILES = 0>
 __global__ void __launch_bounds__(MAX_THREADS, 1) group_kernel(Args p) {
   extern __shared__ float sm[];
-  run_groups<MAXG, BF16>(p, sm);
+  run_groups<MAXG, BF16, TILES>(p, sm);
 }
 
 }  // namespace
@@ -75,8 +85,11 @@ int lfbm5d_group_smem_bytes(int n, int a, int a_h, int a_w) {
 // bf16: the bfloat16 chain's instantiation.
 int lfbm5d_group_occupancy(int N, int aH, int aW, int wiener, int bf16,
                            int* out) {
-  return bf16 ? occupancy(group_kernel<true>, N, aH, aW, wiener, 1, out)
-              : occupancy(group_kernel<false>, N, aH, aW, wiener, 0, out);
+  if (!bf16) return occupancy(group_kernel<false>, N, aH, aW, wiener, 0, out);
+  return with_tiles(aH * aW, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return occupancy(group_kernel<true, T>, N, aH, aW, wiener, 1, out);
+  });
 }
 
 // doff: [T, N, A] per-slot displacement indices, or null to read them from
@@ -100,8 +113,19 @@ int lfbm5d_group_step(const void* noisy, const void* basic, const void* bidx,
                            sigma, kang, num, wden, T, N, A, aH, aW, C, Hp,
                            Wp, V0, V1, nd, ref, wiener, lambda);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_groups(group_kernel<true>, p, tables, 1, st)
-              : launch_groups(group_kernel<false>, p, tables, 0, st);
+  if (!bf16) return launch_groups(group_kernel<false>, p, tables, 0, st);
+  return with_tiles(A, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return launch_groups(group_kernel<true, T>, p, tables, 1, st);
+  });
 }
+
+#ifdef LFBM5D_PHASE_CLOCKS
+// The phase counters of this library's kernel (group_stage.cuh), u64[NCLOCK]
+// to out, zeroed after if reset: the counter build only.
+int lfbm5d_group_clocks(void* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
 
 }  // extern "C"

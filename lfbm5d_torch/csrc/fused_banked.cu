@@ -24,9 +24,10 @@
 // transforms per HT group-channel, three per Wiener one), the aggregation
 // atomics, and the cluster barriers, which at cs=16 wait on sixteen CTAs.
 //
-// banked_kernel<true> is the bfloat16 chain, as group_kernel<true> in
-// csrc/fused.cu; the engine launches it for N=16 groups at grids of at most
-// 128 SAIs (the reference's bf16 chain stops at one 128-lane bank).
+// banked_kernel<true, tiles> is the bfloat16 chain, as group_kernel<true,
+// tiles> in csrc/fused.cu; the engine launches it for N=16 groups at grids
+// of at most 128 SAIs (the reference's bf16 chain stops at one 128-lane
+// bank).
 
 #include "group_stage.cuh"
 
@@ -35,11 +36,12 @@ namespace {
 constexpr int MAXG = 19;
 constexpr int MAXA = 384;
 
-// BF16: the bfloat16 transform chain (group_stage.cuh).
-template <bool BF16>
+// BF16: the bfloat16 transform chain (group_stage.cuh), instantiated per
+// tile count TILES of its angular table (with_tiles).
+template <bool BF16, int TILES = 0>
 __global__ void __launch_bounds__(MAX_THREADS, 1) banked_kernel(Args p) {
   extern __shared__ float sm[];
-  run_groups<MAXG, BF16>(p, sm);
+  run_groups<MAXG, BF16, TILES>(p, sm);
 }
 
 }  // namespace
@@ -49,8 +51,11 @@ extern "C" {
 // As lfbm5d_group_occupancy, for the banked kernel.
 int lfbm5d_group_occupancy_banked(int N, int aH, int aW, int wiener,
                                   int bf16, int* out) {
-  return bf16 ? occupancy(banked_kernel<true>, N, aH, aW, wiener, 1, out)
-              : occupancy(banked_kernel<false>, N, aH, aW, wiener, 0, out);
+  if (!bf16) return occupancy(banked_kernel<false>, N, aH, aW, wiener, 0, out);
+  return with_tiles(aH * aW, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return occupancy(banked_kernel<true, T>, N, aH, aW, wiener, 1, out);
+  });
 }
 
 // As lfbm5d_group_step (doff, bf16 and kang included).
@@ -71,8 +76,19 @@ int lfbm5d_group_step_banked(const void* noisy, const void* basic,
                            sigma, kang, num, wden, T, N, A, aH, aW, C, Hp,
                            Wp, V0, V1, nd, ref, wiener, lambda);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_groups(banked_kernel<true>, p, tables, 1, st)
-              : launch_groups(banked_kernel<false>, p, tables, 0, st);
+  if (!bf16) return launch_groups(banked_kernel<false>, p, tables, 0, st);
+  return with_tiles(A, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return launch_groups(banked_kernel<true, T>, p, tables, 1, st);
+  });
 }
+
+#ifdef LFBM5D_PHASE_CLOCKS
+// The phase counters of this library's kernel (group_stage.cuh), u64[NCLOCK]
+// to out, zeroed after if reset: the counter build only.
+int lfbm5d_group_clocks_banked(void* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
 
 }  // extern "C"

@@ -6,7 +6,7 @@
 // coefficient (u, v) goes through the angular, stack and shrink steps on its
 // own. So CTA `rank` of a cluster owns cpc = 64/cs consecutive coefficients
 // cf = u*8 + v (cf / cpc == rank) for every slot and SAI of the group, in a
-// slice of its own shared memory:
+// slice of its own shared memory (the f32 chain's; the BF16 chain's below):
 //
 //   slice [region][lc][ps]   region 0 the noisy group, 1 (Wiener) the basic
 //                            group; lc = cf % cpc; column n*ap + s*awp + t
@@ -47,13 +47,26 @@
 // tables): the caller's spatial tables are the bf16-rounded 1-D factors;
 // `load` rounds the group to bf16; the spatial pass rounds its result after
 // the second 1-D transform; the angular transform is one dense contraction
-// with the bf16-rounded kron table on the tensor cores (`angular_dense`,
+// with the bf16-rounded kron table on the tensor cores (`angular_mma`,
 // Args::kang: rounding the two 1-D factors instead would double the chain's
-// gain on the mean), rounded; the stack transform, the Wiener product and the inverse stack
-// each round theirs (round to nearest even). Every product accumulates in
-// f32, and the shrink, the weights, the Kaiser weighting and the atomics
-// stay f32. The group stays in f32 shared memory holding bf16-rounded
-// values, so the slices and the plan are the f32 chain's.
+// gain on the mean), rounded; the stack transform, the Wiener product and
+// the inverse stack each round theirs (round to nearest even). Every
+// product accumulates in f32, and the shrink, the weights, the Kaiser
+// weighting and the atomics stay f32. Every value the chain stores into its
+// slice is bf16-exact, so the slice is bf16 (`item_stride`: item (lc, n) a
+// 16-byte aligned row of its A SAIs, an odd number of 16-byte units long),
+// which the DSMEM scatter and fetch and the stack pass read and write
+// converting in registers, and which the angular pass loads and stores
+// with ldmatrix / stmatrix directly. Both directions' dense tables stay in
+// shared memory for the kernel's life (`load_tables`: cp.async once per
+// CTA). The BF16 kernels are instantiated per tile count (`with_tiles`),
+// and both directions run through one call site, so each holds one inlined
+// copy of the tensor-core pass: with more copies ptxas spilled the
+// kernel's long-lived values at 128 registers. Shared bytes per CTA (make_plan; 2 CTAs of 256 threads per SM,
+// 115,456 B each at most): N=8 9x9 HT cs 2 87,600 B, Wiener cs 4 86,304;
+// the N=16 `default` shapes 9x9 HT cs 4 87,600, Wiener cs 8 86,304, 11x11
+// HT cs 8 106,400, Wiener cs 16 105,432 (the f32 chain's cluster sizes at
+// 9x9; 8x8 takes one CTA fewer than f32, 1 and 2 at N=8).
 
 #pragma once
 
@@ -62,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -79,6 +93,49 @@ constexpr int SMEM_RESERVED = 1024;     // the system's share per block
 constexpr int STATIC_SMEM = 256;        // bound on run_groups' static arrays
 constexpr int STACK_FLOATS = 341;       // levels 1, 2, 4, 8, 16: sum of s^2
 constexpr int KT = 128;  // largest A of the BF16 chain's dense angular table
+
+// Per-phase clock64 counters, compiled in only with -DLFBM5D_PHASE_CLOCKS
+// (kernels/_build.py builds that library apart; `chip_smoke.py --profile`
+// reads it). Thread 0 of every CTA adds the cycles since its previous mark
+// to the phase it closes; at exit each CTA adds its sums to phase_cycles.
+// Phases: 0 angular tables to shared memory, 1 scatter (patch loads,
+// spatial forward, DSMEM stores), 2 angular forward, 3 stack and shrink,
+// 4 block_sum, 5 angular inverse, 6 the cluster barriers (waiting), 7
+// fetch, spatial inverse and atomics, 8 the rest (group prologue, origins,
+// weights); slot 9 counts (group, channel) steps, slot 10 a CTA's cycles.
+constexpr int NPHASE = 9;
+constexpr int NCLOCK = NPHASE + 2;
+#ifdef LFBM5D_PHASE_CLOCKS
+__device__ unsigned long long phase_cycles[NCLOCK];
+#define PHASE_CLOCKS_DECL                                    \
+  __shared__ unsigned long long s_clk[NCLOCK];               \
+  if (threadIdx.x < NCLOCK) s_clk[threadIdx.x] = 0;          \
+  const long long clk_start = clock64();                     \
+  long long clk_prev = clk_start
+#define PHASE(ph)                                            \
+  do {                                                       \
+    const long long clk_now = clock64();                     \
+    if (threadIdx.x == 0) s_clk[ph] += clk_now - clk_prev;   \
+    clk_prev = clk_now;                                      \
+  } while (0)
+#define PHASE_STEP()                                         \
+  do {                                                       \
+    if (threadIdx.x == 0) s_clk[NPHASE] += 1;                \
+  } while (0)
+#define PHASE_FLUSH()                                        \
+  do {                                                       \
+    if (threadIdx.x == 0) {                                  \
+      s_clk[NPHASE + 1] = clock64() - clk_start;             \
+      for (int i = 0; i < NCLOCK; ++i)                       \
+        atomicAdd(&phase_cycles[i], s_clk[i]);               \
+    }                                                        \
+  } while (0)
+#else
+#define PHASE_CLOCKS_DECL
+#define PHASE(ph) ((void)0)
+#define PHASE_STEP() ((void)0)
+#define PHASE_FLUSH() ((void)0)
+#endif
 
 // Transform tables in constant memory (kernels/fused.py::kernel_tables):
 // matrices row-major [out][in], angular ones [len][len] at the head of their
@@ -117,21 +174,33 @@ __host__ __device__ inline int slice_stride(int n, int a_h, int a_w) {
   return (n * a_h * (a_w | 1)) | 1;
 }
 
-// Words of the BF16 chain's shared angular table: one direction's dense
-// table at a time, 16 * tiles rows of 8 * tiles bf16 pairs padded by 4
-// (tiles = A / 16 rounded up), so A-fragment reads hit 32 banks, and 4
-// words to align it to 16 bytes.
+// The BF16 chain's slice is bf16 [region][lc][slot][ist]: item (lc, n) is a
+// row of ist = 8 * (ceil(A/8) | 1) values holding SAI a at column a. Rows
+// start on 16 bytes, and at an odd number of 16-byte units per row the 8
+// rows an ldmatrix or stmatrix touches fall on distinct banks. Columns
+// A..ist-1 hold zeros for the kernel's life.
+__host__ __device__ inline int item_stride(int a) {
+  return 8 * (((a + 7) / 8) | 1);
+}
+
+// Words of the BF16 chain's shared angular tables, both directions resident
+// for the kernel's life: 2 * KP rows (forward, then inverse) of KP + 8 bf16
+// (KP = A rounded up to 16; an odd number of 16-byte units per row, so
+// ldmatrix rows hit distinct banks), and 4 words to align them to 16 bytes.
 __host__ __device__ inline int table_words(int a) {
-  const int tiles = (a + 15) / 16;
-  return 16 * tiles * (8 * tiles + 4) + 4;
+  const int kp = (a + 15) / 16 * 16;
+  return kp * (kp + 8) + 4;
 }
 
 // Dynamic shared memory at cluster size cs: the slice, the origins of the
-// CTA's share of the patches and, for the BF16 chain, its angular table.
+// CTA's share of the patches and, for the BF16 chain, its angular tables.
 inline int plan_smem(int n, int a_h, int a_w, int wiener, int bf16, int cs) {
   const int patches = (n * a_h * a_w + cs - 1) / cs;
-  return 4 * ((wiener ? 2 : 1) * (KK / cs) * slice_stride(n, a_h, a_w) +
-              2 * patches + (bf16 ? table_words(a_h * a_w) : 0));
+  const int regions = wiener ? 2 : 1;
+  if (bf16)
+    return 4 * (regions * (KK / cs) * n * item_stride(a_h * a_w) / 2 +
+                2 * patches + table_words(a_h * a_w));
+  return 4 * (regions * (KK / cs) * slice_stride(n, a_h, a_w) + 2 * patches);
 }
 
 // The fewest CTAs whose slice fits two CTAs (256 threads each) on an SM,
@@ -171,6 +240,26 @@ __device__ __forceinline__ float chain_round(float x) {
   return x;
 }
 
+// The BF16 chain's rounding (bfloat16, nearest even) of every value of v,
+// two to a conversion (cvt.rn.bf16x2.f32).
+template <int N>
+__device__ __forceinline__ void round_pairs(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i + 1 < N; i += 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[i], v[i + 1]);
+    v[i] = __low2float(h);
+    v[i + 1] = __high2float(h);
+  }
+  if constexpr (N & 1)
+    v[N - 1] = __bfloat162float(__float2bfloat16_rn(v[N - 1]));
+}
+
+// Slice values as f32.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 // 8x8 transpose over the 8 lanes of a patch: lane L's a[R] = M[R][L] on
 // entry, M[L][R] on exit (three butterfly stages of 4 shuffles).
 __device__ __forceinline__ void transpose8(float (&a)[K], int lane8) {
@@ -191,8 +280,8 @@ __device__ __forceinline__ void transpose8(float (&a)[K], int lane8) {
   }
 }
 
-// Lane j: x = column j of the patch X -> row u = j of Z = F2 X F2^T.
-template <bool BF16>
+// Lane j: x = column j of the patch X -> row u = j of Z = F2 X F2^T (the
+// BF16 chain rounds Z as it stores it).
 __device__ __forceinline__ void spatial_fwd(float (&x)[K], int lane8) {
   float y[K];
 #pragma unroll
@@ -208,7 +297,7 @@ __device__ __forceinline__ void spatial_fwd(float (&x)[K], int lane8) {
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < K; ++j) acc = fmaf(ctab.f2[v * K + j], y[j], acc);
-    x[v] = chain_round<BF16>(acc);
+    x[v] = acc;
   }
 }
 
@@ -229,8 +318,9 @@ __device__ __forceinline__ void spatial_inv(float (&z)[K], int lane8) {
     float acc = 0.f;
 #pragma unroll
     for (int u = 0; u < K; ++u) acc = fmaf(ctab.i2[i * K + u], r[u], acc);
-    z[i] = chain_round<BF16>(acc);
+    z[i] = acc;
   }
+  if constexpr (BF16) round_pairs(z);
 }
 
 // Angular tables: 0 f4s, 1 i4s, 2 f4t, 3 i4t.
@@ -308,122 +398,169 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives row l % 8 of
+// matrix l / 8; r[i] is matrix i's fragment (row lane / 4, columns
+// 2 (lane % 4) and the next).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The inverse, transposed: fragment r[i] (row lane / 4, columns 2 (lane %
+// 4), +1) of matrix i lands as column lane / 4 of the 8 rows whose
+// addresses lanes 8i..8i+7 give.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, L2 only).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes of shared memory that stmatrix lanes without an item write to.
+__device__ __forceinline__ uint4* sink16() {
+  __shared__ __align__(16) uint4 s;
+  return &s;
+}
+
+// 8-item tiles a warp holds per block at this tile count: every table
+// fragment it reads from shared memory feeds that many products. Four
+// (TILES * 16 registers of B fragments) fit beside the kernel's other
+// values without a spill up to 7 tiles; at 8 (A > 112) two do.
+__host__ __device__ constexpr int item_tiles(int tiles) {
+  return tiles < 8 ? 4 : 2;
+}
+
 // The BF16 chain's angular transform: out = K v over the A SAIs of every
 // item (row, slot) of the slice, in place, rounded to bf16, on the tensor
-// cores. K is the dense bf16-rounded table (kron of the two angular DCTs, as
-// the reference's), kt [KP][KP] bf16 row-major (q, a) in shared memory
-// (`load_table`: rows of 8 * TILES + 4 pairs), zero padded to KP = 16 *
-// TILES >= A. The items hold bf16 values, so the products are exact and the
-// sums f32, as the reference's bf16 x bf16 -> f32 dot products. A warp
-// takes 8 items (one n8 tile) at a time: it loads their values as B
-// fragments for every k tile first, then runs the m tiles, each
-// accumulating over the k tiles from A fragments, and writes its outputs.
-// SAI a sits at column a, or a + a / aW when aW is even (PAD: awp = aW +
-// 1). TILES and PAD are template parameters so the fragments stay in
-// registers and odd grids skip the division.
-template <int TILES, bool PAD>
-__device__ void angular_mma(float* S, int rows, int ps, int lg_ns, int ap,
-                            int aW, int A, const uint32_t* kt) {
-  constexpr int KP2 = TILES * 8 + 4;  // words per shared table row
+// cores (mma.sync m16n8k16, bf16 products, f32 sums, as the reference's
+// bf16 x bf16 -> f32 dot products). K is the dense bf16-rounded table
+// (kron of the two angular DCTs, as the reference's), kt [KP][KP + 8]
+// row-major (q, a) in shared memory (load_tables), zero past A; KP = 16 *
+// TILES. A warp takes blocks of NB * 8 items: it loads their rows as B
+// fragments for every k tile (ldmatrix.x4: two tiles' 16 SAIs a load),
+// then walks the m tiles, each A fragment (ldmatrix.x4) feeding the block's
+// NB products, and stores each m tile's outputs transposed into the item
+// rows (stmatrix.x4.trans, 8 SAIs a row). Outputs land only once the warp
+// holds every input of its items, which no other warp touches. Rows past A
+// get K's zero rows, so the padding stays zero; lanes past the last item
+// read item 0 and write to sink16(). When ceil(A/8) is odd the last k
+// tile's upper 8 columns lie past the row: they are not loaded, and the
+// last m tile's upper half is not stored.
+template <int TILES>
+__device__ __forceinline__ void angular_mma(__nv_bfloat16* S, int rows,
+                                            int lg_ns, int N, int ist, int A,
+                                            const __nv_bfloat16* kt) {
+  constexpr int NB = item_tiles(TILES);
+  constexpr int KS = 16 * TILES + 8;  // table row stride
   const int items = rows << lg_ns;
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-  const float inv_aw = 1.f / aW;
-  auto col = [&](int a) {
-    if constexpr (PAD) return a + __float2int_rz((a + 0.5f) * inv_aw);
-    return a;
-  };
-  auto base = [&](int it) {
-    return (it >> lg_ns) * ps + (it & ((1 << lg_ns) - 1)) * ap;
-  };
-  for (int ib = 8 * (threadIdx.x >> 5); ib < items;
-       ib += 8 * (blockDim.x >> 5)) {
-    uint32_t b[TILES][2];
-    {
-      const int it = ib + g;
-      const int bs = it < items ? base(it) : 0;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  const int hi8 = 8 * (mi & 1);  // this lane's matrix: the upper 8 columns
+  const int a8 = (A + 7) & ~7;
+  const bool half = a8 < 16 * TILES;
+  const uint32_t s0 = smem_addr(S), sink = smem_addr(sink16());
+  const uint32_t ka = smem_addr(kt) + 2 * ((r8 + hi8) * KS + 8 * (mi >> 1));
+  for (int ib = 8 * NB * (threadIdx.x >> 5); ib < items;
+       ib += 8 * NB * (blockDim.x >> 5)) {
+    int off[NB / 2];  // this lane's item row in tile pair jp; -1: none
+#pragma unroll
+    for (int jp = 0; jp < NB / 2; ++jp) {
+      const int it = ib + 8 * (2 * jp + (mi >> 1)) + r8;
+      off[jp] = it < items ? ((it >> lg_ns) * N + (it & ((1 << lg_ns) - 1))) *
+                                 ist
+                           : -1;
+    }
+    uint32_t b[NB][TILES][2];
+#pragma unroll
+    for (int jp = 0; jp < NB / 2; ++jp) {
+      const uint32_t src = s0 + 2 * max(off[jp], 0);
 #pragma unroll
       for (int k = 0; k < TILES; ++k) {
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int a = 16 * k + 2 * c + (j & 1) + 8 * (j >> 1);
-          v[j] = it < items && a < A ? S[bs + col(a)] : 0.f;
-        }
-        b[k][0] = bf16_pair(v[0], v[1]);
-        b[k][1] = bf16_pair(v[2], v[3]);
+        const bool cut = k == TILES - 1 && half;
+        uint32_t f[4];
+        ldmatrix_x4(f, src + 2 * (16 * k + (cut ? 0 : hi8)));
+        b[2 * jp][k][0] = f[0];
+        b[2 * jp][k][1] = cut ? 0u : f[1];
+        b[2 * jp + 1][k][0] = f[2];
+        b[2 * jp + 1][k][1] = cut ? 0u : f[3];
       }
     }
-    __syncwarp();  // every lane holds its inputs before any output lands
-    const int out_it[2] = {ib + 2 * c, ib + 2 * c + 1};  // D columns
-    const int out_base[2] = {base(out_it[0]), base(out_it[1])};
-#pragma unroll 2
+#pragma unroll 1
     for (int m = 0; m < TILES; ++m) {
-      float d[4] = {};
-      const uint32_t* r0 = kt + (16 * m + g) * KP2 + c;
-      const uint32_t* r1 = r0 + 8 * KP2;
+      float d[NB][4] = {};
 #pragma unroll
       for (int k = 0; k < TILES; ++k) {
-        const uint32_t a[4] = {r0[8 * k], r1[8 * k], r0[8 * k + 4],
-                               r1[8 * k + 4]};
-        mma_bf16(d, a, b[k][0], b[k][1]);
-      }
+        uint32_t a[4];
+        ldmatrix_x4(a, ka + 2 * (16 * m * KS + 16 * k));
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int q = 16 * m + g + 8 * (r >> 1);
-        if (q < A && out_it[r & 1] < items)
-          S[out_base[r & 1] + col(q)] = chain_round<true>(d[r]);
+        for (int j = 0; j < NB; ++j) mma_bf16(d[j], a, b[j][k][0], b[j][k][1]);
       }
+      const int q0 = 16 * m + hi8;
+#pragma unroll
+      for (int jp = 0; jp < NB / 2; ++jp)
+        stmatrix_x4_trans(
+            off[jp] >= 0 && q0 < a8 ? s0 + 2 * (off[jp] + q0) : sink,
+            bf16_pair(d[2 * jp][0], d[2 * jp][1]),
+            bf16_pair(d[2 * jp][2], d[2 * jp][3]),
+            bf16_pair(d[2 * jp + 1][0], d[2 * jp + 1][1]),
+            bf16_pair(d[2 * jp + 1][2], d[2 * jp + 1][3]));
     }
   }
 }
 
-// Copies one direction's dense table of Args::kang (forward, or inverse:
-// the second) into the CTA's shared table (16-byte aligned), rows padded as
-// angular_mma reads them, in 16-byte words with four loads in flight per
-// thread. The caller orders it against the table's readers.
-__device__ void load_table(uint32_t* dst, const uint32_t* kang, int A,
-                           bool inverse) {
-  const int tiles = (A + 15) >> 4, row4 = 2 * tiles, n4 = 16 * tiles * row4;
-  const uint4* src = reinterpret_cast<const uint4*>(kang) + (inverse ? n4 : 0);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n4; i += blockDim.x)
-    *reinterpret_cast<uint4*>(dst + i / row4 * (4 * row4 + 4) +
-                              i % row4 * 4) = __ldg(src + i);
+// Both directions' dense tables of Args::kang ([2][KP][KP] bf16) into the
+// CTA's shared tables, rows padded to KP + 8: cp.async, 16 bytes a copy,
+// all in flight at once; returns when this thread's copies have landed
+// (the caller's barrier publishes them).
+template <int TILES>
+__device__ void load_tables(__nv_bfloat16* dst, const __nv_bfloat16* kang) {
+  constexpr int C = 2 * TILES, KS = 16 * TILES + 8;  // 16-byte units a row
+  const uint4* src = reinterpret_cast<const uint4*>(kang);
+  for (int i = threadIdx.x; i < 2 * 16 * TILES * C; i += blockDim.x) {
+    const int row = i / C;
+    cp_async16(dst + row * KS + (i - row * C) * 8, src + i);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// angular_mma at the table's tile count (A <= 128: 1..8 tiles) and column
-// padding; kt: the shared table (load_table).
-template <bool PAD>
-__device__ void angular_tiles(float* S, int rows, int ps, int lg_ns, int ap,
-                              int aW, int A, const uint32_t* kt) {
-  switch ((A + 15) >> 4) {
-    case 1: return angular_mma<1, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    case 2: return angular_mma<2, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    case 3: return angular_mma<3, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    case 4: return angular_mma<4, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    case 5: return angular_mma<5, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    case 6: return angular_mma<6, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    case 7: return angular_mma<7, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
-    default: return angular_mma<8, PAD>(S, rows, ps, lg_ns, ap, aW, A, kt);
+// The BF16 kernels' tile count at A SAIs (each is instantiated per count, so
+// each holds one copy of angular_mma: every further inlined copy made ptxas
+// spill the kernel's long-lived values); f(integral_constant<int, tiles>).
+template <int T = 1, typename F>
+auto with_tiles(int a, F&& f) {
+  if constexpr (T < KT / 16) {
+    if ((a + 15) / 16 > T) return with_tiles<T + 1>(a, f);
   }
-}
-
-__device__ void angular_dense(float* S, int rows, int ps, int lg_ns, int ap,
-                              int aH, int aW, const uint32_t* kt) {
-  if (aW & 1) {
-    angular_tiles<false>(S, rows, ps, lg_ns, ap, aW, aH * aW, kt);
-  } else {
-    angular_tiles<true>(S, rows, ps, lg_ns, ap, aW, aH * aW, kt);
-  }
+  return f(std::integral_constant<int, T>{});
 }
 
 // Stack transform of NS live slots, shrink, inverse stack, on the noisy
 // region (the basic region guides Wiener). Items (lc, s, t), t fastest,
 // stepped by blockDim without dividing. Returns this thread's part of the
 // HT count or of the Wiener sum of omega^2. The BF16 chain rounds both
-// forward stack results, the Wiener product and the inverse stack's.
-template <int NS, bool WIENER, bool BF16>
-__device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
+// forward stack results, the Wiener product and the inverse stack's, one
+// value at a time (rounding them in pairs kept more values live, and ptxas
+// spilled); its bf16 slice passes here as one row of A SAIs (aH 1, aW A)
+// per item with slot stride ist (T: the slice's element type).
+template <int NS, bool WIENER, bool BF16, typename T>
+__device__ float stack_shrink(T* S, int cpc, int ps, int ap, int aH,
                               int aW, int awp, float sig2, float thr) {
   constexpr int LOFF = (NS * NS - 1) / 3;
   const int a = aH * aW, step = blockDim.x;
@@ -432,7 +569,7 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
   int lc = threadIdx.x / a;
   float part = 0.f;
   for (; lc < cpc;) {
-    float* col = S + lc * ps + s * awp + t;
+    T* col = S + lc * ps + s * awp + t;
     t += st_t;
     s += st_s;
     lc += st_l;
@@ -448,7 +585,7 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
     if constexpr (WIENER) {
       float vb[NS];
 #pragma unroll
-      for (int n = 0; n < NS; ++n) vb[n] = col[cpc * ps + n * ap];
+      for (int n = 0; n < NS; ++n) vb[n] = to_f(col[cpc * ps + n * ap]);
 #pragma unroll
       for (int q = 0; q < NS; ++q) {
         float b = 0.f;
@@ -463,7 +600,7 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
     }
     float v[NS];
 #pragma unroll
-    for (int n = 0; n < NS; ++n) v[n] = col[n * ap];
+    for (int n = 0; n < NS; ++n) v[n] = to_f(col[n * ap]);
 #pragma unroll
     for (int q = 0; q < NS; ++q) {
       float acc = 0.f;
@@ -486,14 +623,18 @@ __device__ float stack_shrink(float* S, int cpc, int ps, int ap, int aH,
 #pragma unroll
       for (int n = 0; n < NS; ++n)
         acc = fmaf(ctab.sti[LOFF + q * NS + n], y[n], acc);
-      col[q * ap] = chain_round<BF16>(acc);
+      if constexpr (BF16) {
+        col[q * ap] = __float2bfloat16_rn(acc);
+      } else {
+        col[q * ap] = acc;
+      }
     }
   }
   return part;
 }
 
-template <bool WIENER, bool BF16>
-__device__ float stack_pass(int ns, float* S, int cpc, int ps, int ap, int aH,
+template <bool WIENER, bool BF16, typename T>
+__device__ float stack_pass(int ns, T* S, int cpc, int ps, int ap, int aH,
                             int aW, int awp, float sig2, float thr) {
   switch (ns) {
     case 1: return stack_shrink<1, WIENER, BF16>(S, cpc, ps, ap, aH, aW, awp, sig2, thr);
@@ -505,13 +646,17 @@ __device__ float stack_pass(int ns, float* S, int cpc, int ps, int ap, int aH,
 }
 
 // The group stage of one reference SAI; sm: the dynamic shared memory
-// (slice, then the origins of this CTA's patches). BF16: the chain.
-template <int MAXG, bool BF16>
+// (slice, then the origins of this CTA's patches and, in the BF16 chain,
+// the angular tables). BF16: the chain, whose slice is bf16 (item_stride);
+// TILES: its tile count, (A + 15) / 16 (with_tiles).
+template <int MAXG, bool BF16, int TILES = 0>
 __device__ void run_groups(const Args& p, float* sm) {
+  using T = std::conditional_t<BF16, __nv_bfloat16, float>;
   __shared__ float red[MAX_THREADS / 32];
   __shared__ uint8_t smask[MAXN];
   __shared__ int s_lvl;
   __shared__ float s_part, s_w;
+  __shared__ int s_next;  // BF16: the next group (no register carries it)
 
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -519,10 +664,14 @@ __device__ void run_groups(const Args& p, float* sm) {
   const int cpc = KK / cs;
   const int awp = p.aW | 1, ap = p.aH * awp;
   const int ps = slice_stride(p.N, p.aH, p.aW);
-  const int region = cpc * ps;
-  int* oy = reinterpret_cast<int*>(sm + (p.wiener ? 2 : 1) * region);
+  // BF16: item rows of ist values; rs: a coefficient's slots
+  const int ist = BF16 ? item_stride(p.A) : 0;
+  const int rs = BF16 ? p.N * ist : ps;
+  const int region = cpc * rs;
+  T* sl = reinterpret_cast<T*>(sm);
+  int* oy = reinterpret_cast<int*>(sl + (p.wiener ? 2 : 1) * region);
   int* ox = oy + (p.N * p.A + cs - 1) / cs;
-  uint32_t* ktab = reinterpret_cast<uint32_t*>(
+  __nv_bfloat16* ktab = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(ox + (p.N * p.A + cs - 1) / cs) + 15) &
       ~uintptr_t{15});
 
@@ -532,8 +681,8 @@ __device__ void run_groups(const Args& p, float* sm) {
   const int lane8 = threadIdx.x & 7;
   const int sub = threadIdx.x >> 3, per_round = blockDim.x >> 3;
   const int cf0 = lane8 * K;
-  float* own0 = cluster.map_shared_rank(sm, cf0 / cpc);
-  float* own1 = cluster.map_shared_rank(sm, (cf0 + K - 1) / cpc);
+  T* own0 = cluster.map_shared_rank(sl, cf0 / cpc);
+  T* own1 = cluster.map_shared_rank(sl, (cf0 + K - 1) / cpc);
   float kcol[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) kcol[i] = ctab.kai[i * K + lane8];
@@ -542,11 +691,31 @@ __device__ void run_groups(const Args& p, float* sm) {
   const int c_ang = p.nd * nsel + p.nd;
   const size_t plane = (size_t)p.A * p.Hp * p.Wp;
   const int clusters = gridDim.x / cs;
+  PHASE_CLOCKS_DECL;
+  if constexpr (BF16) {
+    // once per CTA: both angular tables, and the slice zeroed (its padding
+    // columns stay zero); the first cluster barrier publishes both
+    if (p.kang)
+      load_tables<TILES>(ktab, reinterpret_cast<const __nv_bfloat16*>(p.kang));
+    uint4* z = reinterpret_cast<uint4*>(sm);
+    for (int i = threadIdx.x; i < (p.wiener ? 2 : 1) * region / 8;
+         i += blockDim.x)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    PHASE(0);
+  }
 
-  for (int t = blockIdx.x / cs; t < p.T; t += clusters) {
+  for (int t = blockIdx.x / cs; t < p.T;
+       t = BF16 ? s_next : t + clusters) {
     __syncthreads();  // the previous group is done with smask/s_lvl/origins
     if (threadIdx.x < p.N) smask[threadIdx.x] = p.mask[t * p.N + threadIdx.x];
-    if (threadIdx.x == 0) s_lvl = p.lvl[t];
+    if (threadIdx.x == 0) {
+      s_lvl = p.lvl[t];
+      if constexpr (BF16) {  // the grid's clusters, read here, not hoisted
+        unsigned grid;
+        asm volatile("mov.u32 %0, %%nctaid.x;" : "=r"(grid));
+        s_next = t + (int)grid / cs;
+      }
+    }
     __syncthreads();
     bool live = false;
     for (int n = 0; n < p.N; ++n) live |= smask[n] != 0;
@@ -567,14 +736,14 @@ __device__ void run_groups(const Args& p, float* sm) {
       ox[i] = sx + d % nsel - p.nd;
     }
     __syncthreads();
+    PHASE(8);
 
     for (int c = 0; c < p.C; ++c) {
       const float sig = p.sigma[c];
       const float sig2 = sig * sig;
       cluster.sync();  // every CTA is done reading the slices (last channel)
-      if constexpr (BF16) {  // ready at the barrier after the scatter
-        if (p.kang) load_table(ktab, p.kang, p.A, false);
-      }
+      PHASE(6);
+      PHASE_STEP();
       // steps (round, region), basic first; the next step's loads are in
       // flight while this one is transformed and stored
       const int steps = rounds << p.wiener;
@@ -586,8 +755,8 @@ __device__ void run_groups(const Args& p, float* sm) {
           const float* src = (g ? p.basic : p.noisy) + c * plane +
                              ((size_t)a * p.Hp + oy[i]) * p.Wp + ox[i] + lane8;
 #pragma unroll
-          for (int r = 0; r < K; ++r)
-            x[r] = chain_round<BF16>(__ldg(src + r * p.Wp));
+          for (int r = 0; r < K; ++r) x[r] = __ldg(src + r * p.Wp);
+          if constexpr (BF16) round_pairs(x);
         } else {
 #pragma unroll
           for (int r = 0; r < K; ++r) x[r] = 0.f;
@@ -600,49 +769,77 @@ __device__ void run_groups(const Args& p, float* sm) {
         load(st + 1, nx);
         const int i = (st >> p.wiener) * per_round + sub;
         const int g = p.wiener - (st & p.wiener);
-        spatial_fwd<BF16>(x, lane8);
+        spatial_fwd(x, lane8);
         if (i < nloc) {
           const int n = (p0 + i) / p.A, a = (p0 + i) % p.A;
-          const int colx = n * ap + (a / p.aW) * awp + a % p.aW;
+          if constexpr (BF16) {  // rounded as stored, two to a conversion
 #pragma unroll
-          for (int v = 0; v < K; ++v)
-            (v < K / 2 ? own0 : own1)[g * region + (cf0 + v) % cpc * ps +
-                                      colx] = x[v];
+            for (int v = 0; v < K; v += 2) {
+              const __nv_bfloat162 h = __floats2bfloat162_rn(x[v], x[v + 1]);
+              T* dst = (v < K / 2 ? own0 : own1) + g * region + n * ist + a;
+              dst[(cf0 + v) % cpc * rs] = h.x;
+              dst[(cf0 + v + 1) % cpc * rs] = h.y;
+            }
+          } else {
+            const int colx = n * ap + (a / p.aW) * awp + a % p.aW;
+#pragma unroll
+            for (int v = 0; v < K; ++v)
+              (v < K / 2 ? own0 : own1)[g * region + (cf0 + v) % cpc * ps +
+                                        colx] = x[v];
+          }
         }
 #pragma unroll
         for (int r = 0; r < K; ++r) x[r] = nx[r];
       }
+      PHASE(1);
       cluster.sync();  // the slices are complete
+      PHASE(6);
 
       const int rows = (p.wiener ? 2 : 1) * cpc;
+      float part = 0.f;
       if constexpr (BF16) {
-        if (p.kang) {
-          angular_dense(sm, rows, ps, s_lvl, ap, p.aH, p.aW, ktab);
-          __syncthreads();  // the forward table is read; block_sum orders
-          load_table(ktab, p.kang, p.A, true);  // the inverse before use
+        // direction 0: forward on both regions, stack, shrink and weights;
+        // 1: inverse on the noisy one. One call site (angular_mma).
+#pragma unroll 1
+        for (int dir = 0;; ++dir) {
+          if (p.kang)
+            angular_mma<TILES>(sl, dir ? cpc : rows, s_lvl, p.N, ist, p.A,
+                               ktab + dir * 16 * TILES * (16 * TILES + 8));
+          if (dir) break;
+          __syncthreads();
+          PHASE(2);
+          part = p.wiener ? stack_pass<true, BF16>(ns, sl, cpc, rs, ist, 1,
+                                                   p.A, awp, sig2, 0.f)
+                          : stack_pass<false, BF16>(ns, sl, cpc, rs, ist, 1,
+                                                    p.A, awp, sig2,
+                                                    p.lambda * sig);
+          PHASE(3);
+          const float tot = block_sum(part, red);  // orders the stack pass
+          if (threadIdx.x == 0) s_part = tot;
+          PHASE(4);
         }
       } else {
         angular_pass<0, MAXG>(p.aH, sm, rows, ps, s_lvl, ap, p.aW, 1, awp);
         __syncthreads();
         angular_pass<2, MAXG>(p.aW, sm, rows, ps, s_lvl, ap, p.aH, awp, 1);
-      }
-      __syncthreads();
-      const float part =
-          p.wiener ? stack_pass<true, BF16>(ns, sm, cpc, ps, ap, p.aH, p.aW,
-                                            awp, sig2, 0.f)
-                   : stack_pass<false, BF16>(ns, sm, cpc, ps, ap, p.aH, p.aW,
-                                             awp, sig2, p.lambda * sig);
-      const float tot = block_sum(part, red);  // orders the stack pass too
-      if (threadIdx.x == 0) s_part = tot;
-      if constexpr (BF16) {
-        if (p.kang)
-          angular_dense(sm, cpc, ps, s_lvl, ap, p.aH, p.aW, ktab);
-      } else {
+        __syncthreads();
+        PHASE(2);
+        part = p.wiener ? stack_pass<true, BF16>(ns, sm, cpc, ps, ap, p.aH,
+                                                 p.aW, awp, sig2, 0.f)
+                        : stack_pass<false, BF16>(ns, sm, cpc, ps, ap, p.aH,
+                                                  p.aW, awp, sig2,
+                                                  p.lambda * sig);
+        PHASE(3);
+        const float tot = block_sum(part, red);  // orders the stack pass too
+        if (threadIdx.x == 0) s_part = tot;
+        PHASE(4);
         angular_pass<1, MAXG>(p.aH, sm, cpc, ps, s_lvl, ap, p.aW, 1, awp);
         __syncthreads();
         angular_pass<3, MAXG>(p.aW, sm, cpc, ps, s_lvl, ap, p.aH, awp, 1);
       }
+      PHASE(5);
       cluster.sync();  // inverse slices and partials are complete
+      PHASE(6);
 
       if (threadIdx.x == 0) {
         float s = 0.f;  // rank order: the same weight in every CTA and run
@@ -651,6 +848,7 @@ __device__ void run_groups(const Args& p, float* sm) {
                        : (s > 0.f ? 1.f / (sig2 * fmaxf(s, 1.f)) : 1.f);
       }
       __syncthreads();
+      PHASE(8);
       const float w = s_w;
       float* num = p.num + c * plane;
       float* wden = p.wden + c * plane;
@@ -659,10 +857,11 @@ __device__ void run_groups(const Args& p, float* sm) {
         const int i = rd * per_round + sub;
         if (rd < rounds && i < nloc) {
           const int n = (p0 + i) / p.A, a = (p0 + i) % p.A;
-          const int colx = n * ap + (a / p.aW) * awp + a % p.aW;
+          const int colx = BF16 ? n * ist + a
+                                : n * ap + (a / p.aW) * awp + a % p.aW;
 #pragma unroll
           for (int v = 0; v < K; ++v)
-            z[v] = (v < K / 2 ? own0 : own1)[(cf0 + v) % cpc * ps + colx];
+            z[v] = to_f((v < K / 2 ? own0 : own1)[(cf0 + v) % cpc * rs + colx]);
         } else {
 #pragma unroll
           for (int v = 0; v < K; ++v) z[v] = 0.f;
@@ -687,10 +886,28 @@ __device__ void run_groups(const Args& p, float* sm) {
 #pragma unroll
         for (int v = 0; v < K; ++v) z[v] = nz[v];
       }
+      PHASE(7);
     }
   }
   cluster.sync();  // no CTA leaves while another may read its slice
+  PHASE(6);
+  PHASE_FLUSH();
 }
+
+#ifdef LFBM5D_PHASE_CLOCKS
+// Copies the phase counters to the host (u64[NCLOCK]) and, if reset,
+// zeroes them.
+inline int read_phase_clocks(void* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[NCLOCK] = {};
+    err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+#endif
 
 // Fills the Args shared by both launchers.
 inline Args make_args(const void* noisy, const void* basic, const void* bidx,

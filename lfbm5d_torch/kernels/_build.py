@@ -7,6 +7,12 @@ library lands in `build/kernels/<hash>/` at the repository root, keyed by a
 hash of the sources, headers and flags, so a checkout builds once and reuses
 it. Every C entry point returns cudaGetLastError(); `check` raises on
 anything but 0.
+
+`library(clocks=True)` is a second build of the same sources with
+-DLFBM5D_PHASE_CLOCKS, in `build/kernels_clocks/<hash>/`: the group kernels
+with per-phase clock64 counters (csrc/group_stage.cuh) and the entry points
+that read them (`CLOCK_SIGNATURES`). Only `chip_smoke.py --profile` builds
+it; the release library has no counter code.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+CLOCKS_ROOT = BUILD_ROOT.with_name("kernels_clocks")
+CLOCKS_FLAG = "-DLFBM5D_PHASE_CLOCKS"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,7 +51,12 @@ _SIGNATURES = {
     "lfbm5d_gather_rows": [_P] * 3 + [_I] * 2 + [_P],
 }
 
+# the counter build's extra entry points: u64[NCLOCK] out, reset flag
+CLOCK_SIGNATURES = {"lfbm5d_group_clocks": [_P, _I],
+                    "lfbm5d_group_clocks_banked": [_P, _I]}
+
 _lib = None
+_clock_lib = None
 build_seconds = None  # wall time of this process' nvcc run (None: cached)
 source_seconds = {}  # nvcc seconds per source of this process' build
 build_log = ""  # ptxas' report (registers, spills) of this process' build
@@ -62,16 +75,18 @@ def _nvcc() -> str:
     )
 
 
-def build(src_dir: Path = SRC_DIR) -> Path:
+def build(src_dir: Path = SRC_DIR, clocks: bool = False) -> Path:
     """Compile the sources of src_dir if this hash has no library yet; its
-    path."""
+    path. clocks: the counter build (module docstring)."""
     global build_seconds, build_log, source_seconds
     srcs = sorted(src_dir.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + ((CLOCKS_FLAG,) if clocks else ())
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in sorted(src_dir.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    out = BUILD_ROOT / h.hexdigest()[:16] / "liblfbm5d_kernels.so"
+    root = CLOCKS_ROOT if clocks else BUILD_ROOT
+    out = root / h.hexdigest()[:16] / "liblfbm5d_kernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -79,7 +94,7 @@ def build(src_dir: Path = SRC_DIR) -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     objs = [out.with_name(f"{src.stem}.{tag}.o") for src in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    cmds = [[nvcc, *flags, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(srcs, objs)]
 
     def compile_one(cmd):
@@ -114,18 +129,29 @@ def build(src_dir: Path = SRC_DIR) -> Path:
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def load(path: Path, clocks: bool = False) -> ctypes.CDLL:
+    """The library at path with its entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    sigs = {**_SIGNATURES, **(CLOCK_SIGNATURES if clocks else {})}
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.lfbm5d_error_string.argtypes = [ctypes.c_int]
+    lib.lfbm5d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library(clocks: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (built on first call); clocks: the counter
+    build, which the wrappers never use."""
+    global _lib, _clock_lib
+    if clocks:
+        if _clock_lib is None:
+            _clock_lib = load(build(clocks=True), clocks=True)
+        return _clock_lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.lfbm5d_error_string.argtypes = [ctypes.c_int]
-        lib.lfbm5d_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 

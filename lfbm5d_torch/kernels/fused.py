@@ -36,10 +36,11 @@ those tables. Kernel and plain version add in
 different orders, so a value within f32 rounding of a bf16 rounding
 boundary may round the other way, and an HT coefficient near the threshold
 may flip with it: they agree by relative L2 on num/wden, not to f32
-rounding (bounds in chip_smoke.py, phase (p)). Their slices are the f32
-chain's; each CTA also holds one direction's dense angular table in shared
-memory (`group_plan(..., bf16=True)`, `table_words`), which at 9x9 leaves
-the cluster sizes unchanged.
+rounding (bounds in chip_smoke.py, phase (p)). Their slices are bf16
+(every value they hold is bf16-exact; `item_stride`), and each CTA holds
+both directions' dense angular tables in shared memory for the kernel's
+life (`group_plan(..., bf16=True)`, `table_words`), which at 9x9 leaves
+the cluster sizes those of the f32 chain.
 
 Contract (kernel and plain version alike), on the kernel's planar layout:
   noisy, basic   [C, A, Hp, Wp]   padded LF planes (basic: Wiener only)
@@ -120,35 +121,49 @@ def banked_fits(sp: StepParams, a_h: int, a_w: int) -> bool:
             and a_h * a_w <= MAX_A_BANKED)
 
 
+def item_stride(a: int) -> int:
+    """bf16 values per item row of the bf16 chain's slice (a copy of
+    csrc/group_stage.cuh::item_stride): A rounded up to 8 and then to an odd
+    number of 16-byte units, so rows start on 16 bytes and the 8 rows of one
+    ldmatrix or stmatrix fall on distinct banks."""
+    return 8 * (-(-a // 8) | 1)
+
+
 def table_words(a: int) -> int:
-    """Words of the bf16 chain's shared angular table (a copy of
-    csrc/group_stage.cuh::table_words): one direction's dense table, 16*t
-    rows of 8*t bf16 pairs padded by 4, t = ceil(A/16), and 4 words to
-    align it to 16 bytes."""
-    t = -(-a // 16)
-    return 16 * t * (8 * t + 4) + 4
+    """Words of the bf16 chain's shared angular tables (a copy of
+    csrc/group_stage.cuh::table_words): both directions' dense tables,
+    resident for the kernel's life, 2*KP rows of KP + 8 bf16 (KP = A
+    rounded up to 16: an odd number of 16-byte units a row), and 4 words
+    to align them to 16 bytes."""
+    kp = -(-a // 16) * 16
+    return kp * (kp + 8) + 4
 
 
 def group_plan(n_sim: int, a_h: int, a_w: int, wiener: bool,
                bf16: bool = False) -> tuple[int, int, int]:
     """(cluster size, threads, dynamic shared bytes per CTA) of the group
     kernels: a copy of csrc/group_stage.cuh::make_plan. Each CTA holds 64/cs
-    spatial frequencies of the group ([regions][64/cs][ps] floats, ps =
-    (N*aH*(aW|1))|1, two regions for Wiener), the origins of its share of
-    the N*A patches and, in the bf16 chain, its angular table; the fewest
-    CTAs that fit two 256-thread CTAs on an SM, else one 512-thread CTA.
-    Raises if no cluster holds the group."""
-    ps = (n_sim * a_h * (a_w | 1)) | 1
-    table = table_words(a_h * a_w) if bf16 else 0
+    spatial frequencies of the group (two regions for Wiener) and the
+    origins of its share of the N*A patches: the f32 chain as
+    [regions][64/cs][ps] floats, ps = (N*aH*(aW|1))|1; the bf16 chain as
+    [regions][64/cs][N][item_stride(A)] bf16 and both angular tables
+    (`table_words`). The fewest CTAs that fit two 256-thread CTAs on an SM,
+    else one 512-thread CTA. Raises if no cluster holds the group."""
+    a = a_h * a_w
+    regions = 2 if wiener else 1
     for per_sm in (2, 1):
         limit = min(MAX_SMEM, SMEM_PER_SM // per_sm - SMEM_RESERVED)
         cs = 1
         while cs <= MAX_CLUSTER:
-            patches = -(-n_sim * a_h * a_w // cs)
-            smem = 4 * ((2 if wiener else 1) * (64 // cs) * ps + 2 * patches
-                        + table)
-            if smem <= limit - STATIC_SMEM:
-                return cs, MAX_THREADS // per_sm, smem
+            patches = -(-n_sim * a // cs)
+            if bf16:
+                words = (regions * (64 // cs) * n_sim * item_stride(a) // 2
+                         + 2 * patches + table_words(a))
+            else:
+                ps = (n_sim * a_h * (a_w | 1)) | 1
+                words = regions * (64 // cs) * ps + 2 * patches
+            if 4 * words <= limit - STATIC_SMEM:
+                return cs, MAX_THREADS // per_sm, 4 * words
             cs *= 2
     raise ValueError(f"no cluster of <= {MAX_CLUSTER} CTAs holds an N={n_sim}"
                      f" {a_h}x{a_w} group")

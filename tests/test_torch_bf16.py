@@ -304,17 +304,21 @@ def test_kernel_tables_carry_the_chain():
 
 @pytest.mark.parametrize("n_sim", [8, 16])
 def test_bf16_plan_holds_the_angular_table(n_sim):
-    """The bf16 kernels' launch plan adds one direction's shared angular
-    table (16*t rows of 8*t + 4 words, t = ceil(A/16), and 4 words of
-    alignment) to the f32 plan's bytes; at 9x9 the cluster sizes stay
-    those of the f32 chain."""
+    """The bf16 kernels' launch plan holds a bf16 slice (item rows of
+    `item_stride(A)` values), the patch origins and both directions' shared
+    angular tables (2 * KP rows of KP + 8 bf16, KP = A rounded up to 16,
+    and 4 words of alignment); at 9x9 the cluster sizes stay those of the
+    f32 chain."""
     for wiener in (False, True):
         f32 = kf.group_plan(n_sim, 9, 9, wiener)
         bf16 = kf.group_plan(n_sim, 9, 9, wiener, bf16=True)
         assert bf16[:2] == f32[:2]
-        assert bf16[2] - f32[2] == 4 * (96 * 52 + 4)
-    assert kf.table_words(128) == 128 * 68 + 4
-    assert kf.table_words(1) == 16 * 12 + 4
+        cs = bf16[0]
+        slice_words = (2 if wiener else 1) * (64 // cs) * n_sim * 88 // 2
+        origins = 2 * -(-n_sim * 81 // cs)
+        assert bf16[2] == 4 * (slice_words + origins + 96 * 104 + 4)
+    assert kf.table_words(128) == 128 * 136 + 4
+    assert kf.table_words(1) == 16 * 24 + 4
 
 
 def test_chain_mean_gain_is_the_references():
