@@ -15,6 +15,12 @@ Usage (from the repository root, one CUDA card):
         (e)'s table shape (extract equal, accumulate within 1e-5), and the
         row gather at (j)'s flagship shape (outputs equal, index_select
         beside them; see `ab`), and both trees' nvcc seconds per source
+    python chip_smoke.py --swap-check       whether (q) sees an s/t swap that
+        every square check passes: mutant group kernels (the f32 slice
+        decoded transposed, in a copy of lfbm5d_torch/csrc built in a
+        temporary directory; the bf16 dense table built for the swapped
+        order, in memory) against their plain versions at square and
+        non-square grids (see `swap_check`)
     python chip_smoke.py --profile [CELLS]  where the device time goes: each
         cell of CELLS (comma-separated names; all by default) once to warm
         up, then once under torch.profiler: wall time, device busy time,
@@ -34,10 +40,12 @@ Phases; any failure exits non-zero without the final "ok" line:
       bf16 chain's eight tile counts), failing if a bf16 group kernel
       spills; the launch plan
       of every group-kernel shape the phases launch (the bf16
-      instantiations' at 9x9) (cluster size, threads, shared bytes per CTA, max active
+      instantiations' at 9x9 and at (q)'s grids) (cluster size, threads,
+      shared bytes per CTA, max active
       clusters, CTAs per SM), the Python copy (kernels/fused.py::group_plan)
       equal to the library's; the BM plans (kernels/bm.py::bm_plan,
-      self_plan) equal to the library's at every BM shape the phases launch;
+      self_plan) equal to the library's at every BM shape the phases launch
+      ((q)'s non-square ones included);
       the extract/accumulate plan (kernels/extract.py::twokernel_plan) equal
       to the library's at every two-kernel shape the phases launch; the row
       gather's plan (kernels/gather.py::gather_plan) equal to the library's
@@ -152,7 +160,25 @@ Phases; any failure exits non-zero without the final "ok" line:
       of (h)'s float64 plain pipeline; 17x17x32x32 matched through
       auto_bf16 (289 SAIs, beyond the chain's 128): the same step as auto
       (route banked, f32 kernel launched, no bf16 one), final within 1e-4
-      relative L2 of auto's.
+      relative L2 of auto's;
+  (q) non-square angular grids (aH != aW: with one angular transform on
+      both axes, kron(F, F) commutes with swapping s and t, so an s/t swap
+      passes every square check): the two-plane LF (synth seed 0, disp 1/2,
+      noise seed 1, sigma 25, RGB) at 32x48, reference SAI (1, 3) clipped
+      to the grid (s != t); self-BM and cross-argmin exactly equal
+      (mismatch 0) at 5x7 and 7x5 `matched`; the route's f32 group kernel
+      within 1e-4 relative L2 (as (c)) and, at A <= 128, its bf16 one
+      within 1e-3 (as (p)), HT and Wiener, at 5x7 and 7x5 `matched` and
+      5x7 `default` (route fused, bf16 tile count 3), 1x9 and 9x1 `matched`
+      (fused, one tile), 8x16 and 16x8 `matched` (banked, A = 128, tile
+      count 8) and 13x19 `matched` (banked f32, A = 247); extract_groups
+      exact and both accumulate forms within 1e-5 (as (e)) at 5x7 with a
+      doff table (doff_mode "take"); then run_bm5d at 5x7x64x96 RGB
+      `matched` through engine "auto" (route fused), "auto_bf16" (fused
+      bf16) and fused=False (two_kernel), and at 16x8x32x32 through "auto"
+      (banked): each final PSNR within 0.05 dB of the float64 plain
+      pipeline (engine "torch") run on the card, its route's kernels
+      launched and no other group kernel.
 Then the card's name and power limit, a {"kernels": [...]} line (launches
 from the path each kernel serves; ms and plain_ms at that path's shapes,
 the BM rows at the matched flagship; the bf16 rows' launches from (p)'s
@@ -240,6 +266,23 @@ KERNEL_GROUPS = (
     ("gemm", "cuBLAS GEMMs"),
     ("sort", "argsort (select_similar)"),
 )
+
+# (q): the grids (aH, aW, preset) whose group kernels are held against their
+# plain versions at NONSQUARE_HW (each route's f32 kernel, and its bf16 one
+# where A <= 128); BM at the 35-SAI matched grids, the two-kernel route at
+# the first; then run_bm5d end to end per (aH, aW, H, W, (engine, fused,
+# the kernel that run must launch)), against the float64 plain pipeline
+NONSQUARE = ((5, 7, "matched"), (7, 5, "matched"), (5, 7, "default"),
+             (1, 9, "matched"), (9, 1, "matched"), (8, 16, "matched"),
+             (16, 8, "matched"), (13, 19, "matched"))
+NONSQUARE_HW = (32, 48)
+NONSQUARE_RUNS = (
+    (5, 7, 64, 96, (("auto", None, "fused_group_step"),
+                    ("auto_bf16", None, "fused_group_step_bf16"),
+                    ("auto", False, "extract_groups"))),
+    (16, 8, 32, 32, (("auto", None, "fused_group_step_banked"),)))
+GROUP_KERNELS = ("fused_group_step", "fused_group_step_banked",
+                 "fused_group_step_bf16", "fused_group_step_banked_bf16")
 
 PHASE_NAMES = ("angular tables to shared", "scatter (loads, spatial fwd, "
                "DSMEM stores)", "angular forward", "stack and shrink",
@@ -423,13 +466,15 @@ def cold_rounds(fns, rounds: int = GATHER_ROUNDS):
     return [(statistics.median(t), min(t), max(t)) for t in times]
 
 
-def lf_on_card(a, h, w, noise_seed, dev="cuda:0"):
-    """(noisy, clean) f32 on the card: the two-plane LF of CELLS."""
+def lf_on_card(a, h, w, noise_seed, dev="cuda:0", a_w=None):
+    """(noisy, clean) f32 on the card: the two-plane LF of CELLS, a x a
+    SAIs (a x a_w when a_w is given)."""
     import torch
 
     from lfbm5d_torch.lf import add_noise_np, synthetic_lf
 
-    clean = synthetic_lf(a, a, h, w, channels=3, disp_bg=1, disp_fg=2, seed=0)
+    clean = synthetic_lf(a, a if a_w is None else a_w, h, w, channels=3,
+                         disp_bg=1, disp_fg=2, seed=0)
     noisy = add_noise_np(clean, 25.0, seed=noise_seed)
     return (torch.as_tensor(noisy, dtype=torch.float32, device=dev),
             torch.as_tensor(clean, dtype=torch.float32, device=dev))
@@ -505,15 +550,15 @@ def bm_cases(x_flag, x17):
                 ("17x17x128x128 matched", "matched", x17))]
 
 
-def bm_ctx(sp, x):
-    """The BM inputs of step params sp at reference SAI 0 of the OPP LF x:
-    the padded matching planes and the reference grid."""
+def bm_ctx(sp, x, ref=0):
+    """The BM inputs of step params sp at reference SAI `ref` of the OPP LF
+    x: the padded matching planes and the reference grid."""
     from lfbm5d_torch.lf import ind_initialize
     from lfbm5d_torch.pipeline.denoise import _flat_pad
 
     h, w = x.shape[2:4]
     return dict(sp=sp, match0=_flat_pad(x, sp.pad)[..., 0].contiguous(),
-                ref=0, ys=ind_initialize(h, sp.k, sp.p) + sp.pad,
+                ref=ref, ys=ind_initialize(h, sp.k, sp.p) + sp.pad,
                 xs=ind_initialize(w, sp.k, sp.p) + sp.pad)
 
 
@@ -587,14 +632,17 @@ def bm_plan_table(lib) -> None:
     lfs = ((9, 434, 625), (9, 434, 624), (17, 128, 128), (17, 512, 512),
            (9, 24, 32), (9, 64, 96), (3, 32, 40), (17, 32, 32), (19, 32, 32),
            (20, 32, 32), (33, 24, 24), (1, 64, 64))
+    # (A, H, W): the square LFs above, then (q)'s non-square ones
+    shapes = [(side * side, h, w) for side, h, w in lfs] + [
+        (a_h * a_w, *NONSQUARE_HW) for a_h, a_w, _ in NONSQUARE] + [
+        (a_h * a_w, h, w) for a_h, a_w, h, w, _ in NONSQUARE_RUNS]
     steps = [(preset, preset_denoise_params(preset, 25.0).ht)
              for preset in ("matched", "default", "robust", "fast")]
     steps.append(("matched nd=0", steps[0][1].replace(n_disp=0)))
     seen = set()
     for preset, sp in steps:
-        for side, h, w in lfs:
-            key = (h + 2 * sp.pad, w + 2 * sp.pad, side * side, sp.k,
-                   sp.n_disp)
+        for a, h, w in shapes:
+            key = (h + 2 * sp.pad, w + 2 * sp.pad, a, sp.k, sp.n_disp)
             if key in seen:
                 continue
             seen.add(key)
@@ -612,7 +660,7 @@ def bm_plan_table(lib) -> None:
             if tuple(sout) != py:
                 raise AssertionError(f"self_plan({sp.k}, {sp.n_search}, {t}): "
                                      f"library {tuple(sout)} vs Python {py}")
-            if (side, h, w) == (9, 434, 625):
+            if (a, h, w) == (81, 434, 625):
                 print(f"(a) bm_plan {preset} flagship (hp, wp, A, k, nd) "
                       f"{key}: tile {out[0]}x{out[1]}, SAI chunk {out[2]}, "
                       f"grid {out[3]}, {out[4]} B shared; self-BM T={t}: "
@@ -622,9 +670,9 @@ def bm_plan_table(lib) -> None:
 
 
 # (k, A) of every two-kernel launch of the phases: 17x17 matched, then
-# two_kernel_shapes' and second_card's
+# two_kernel_shapes', second_card's and (q)'s 5x7
 TWO_KERNEL_SHAPES = ((8, 289), (4, 400), (12, 289), (16, 289), (16, 400),
-                     (16, 1089), (8, 1), (8, 81))
+                     (16, 1089), (8, 1), (8, 81), (8, 35))
 
 
 def twokernel_plan_table(lib) -> None:
@@ -705,10 +753,10 @@ def group_flops(lvl, mask, c, a_h, a_w, wiener, dense=False):
     return float(torch.sum(fp32)) * c, float(torch.sum(tc)) * c
 
 
-def group_setup(params, x, basic, sigma_c, wiener, chain=None):
-    """The group stage's inputs at the first reference SAI of one step (its
-    tables in the transform chain `chain`), and run(f, **kw): zero
-    num/wden, then call a group function f on them."""
+def group_setup(params, x, basic, sigma_c, wiener, chain=None, ref=None):
+    """The group stage's inputs at the first reference SAI of one step (or
+    at SAI `ref`; its tables in the transform chain `chain`), and run(f,
+    **kw): zero num/wden, then call a group function f on them."""
     import torch
 
     from lfbm5d_torch.pipeline.denoise import _flat_pad
@@ -724,7 +772,7 @@ def group_setup(params, x, basic, sigma_c, wiener, chain=None):
     mp = bp if wiener else xp
     noisy_pl = xp.permute(3, 0, 1, 2).contiguous()
     basic_pl = bp.permute(3, 0, 1, 2).contiguous() if wiener else None
-    r = step.refs[0]
+    r = step.refs[0] if ref is None else ref
     fmask = step.flat_mask(noisy_pl, sigma_c)
     sim_y, sim_x, lvl, mask, bidx = step.block_match(
         mp[..., 0].contiguous(), r, fmask
@@ -800,8 +848,9 @@ def plan_line(lib, fn_name, n_sim, a_h, a_w, wiener) -> str:
 def plan_table(lib) -> None:
     """(a): the plan of every group-kernel shape the phases launch (the
     matched, default and robust presets and matched at N=1, at 1x1, 3x3,
-    9x9, 17x17 and 19x19; the bf16 instantiations at 9x9), Python copy ==
-    library, printed before the first timed run."""
+    9x9, 17x17 and 19x19; the bf16 instantiations at 9x9; (q)'s non-square
+    grids, f32 and, where A <= 128, bf16), Python copy == library, printed
+    before the first timed run."""
     from lfbm5d_torch import preset_denoise_params
     from lfbm5d_torch.pipeline.engine import resolve_route
 
@@ -823,12 +872,22 @@ def plan_table(lib) -> None:
                     print(f"(a) plan {f} N={sp.n_sim} {side}x{side} "
                           f"{'Wiener' if wiener else 'HT'}: "
                           f"{plan_line(lib, f, sp.n_sim, side, side, wiener)}")
+    # (q)'s non-square grids (its end-to-end runs launch the same shapes)
+    for a_h, a_w, preset in NONSQUARE:
+        pp = preset_denoise_params(preset, 25.0)
+        for sp, wiener in ((pp.ht, False), (pp.wiener, True)):
+            fn = nonsquare_kernel(sp, a_h, a_w)
+            for f in (fn, fn + "_bf16") if a_h * a_w <= 128 else (fn,):
+                print(f"(a) plan {f} N={sp.n_sim} {a_h}x{a_w} "
+                      f"{'Wiener' if wiener else 'HT'}: "
+                      f"{plan_line(lib, f, sp.n_sim, a_h, a_w, wiener)}")
 
 
 def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
-                timed=True, rel_max=GROUP_REL_MAX):
-    """A group kernel vs plain at the first reference SAI of one step:
-    (max |delta|, kernel ms, plain ms, bound ms, bound_by, setup); the times
+                timed=True, rel_max=GROUP_REL_MAX, ref=None):
+    """A group kernel vs plain at the first reference SAI of one step (or at
+    SAI `ref`): (max |delta|, kernel ms, plain ms, bound ms, bound_by,
+    setup; setup["rel"] the larger relative L2 of num and den); the times
     None unless timed (CUDA events time the current device only). A *_bf16
     kernel runs with bf16 tables, as its plain version."""
     import torch
@@ -837,7 +896,7 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
 
     fn = getattr(kf, fn_name)
     chain = torch.bfloat16 if fn_name.endswith("_bf16") else None
-    g = group_setup(params, x, basic, sigma_c, wiener, chain)
+    g = group_setup(params, x, basic, sigma_c, wiener, chain, ref)
     run, num, wden, mask, lvl = (g["run"], g["num"], g["wden"], g["mask"],
                                  g["lvl"])
     a_h, a_w, _, _, c = x.shape
@@ -848,6 +907,7 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
     rel_n = float((nk - num).norm() / num.norm())
     rel_d = float((dk - wden).norm() / wden.norm())
     err = max(float((nk - num).abs().max()), float((dk - wden).abs().max()))
+    g["rel"] = max(rel_n, rel_d)
     live = int(mask[:, 0].sum())
     msg = (f"{label} {fn_name} {'Wiener' if wiener else 'HT'} (route "
            f"{g['step'].route}; {plan}): {live}/{mask.shape[0]} live groups, "
@@ -870,10 +930,10 @@ def group_check(label, params, x, basic, sigma_c, wiener, fn_name, lib,
     return err, ms, pms, bms, by, g
 
 
-def two_kernel_case(sp, lam, x, sigma_c, doff_mode="direct"):
-    """The two-kernel route's inputs at the first reference SAI of an HT step
-    of step params sp on LF x: (planes, (bidx, sim_y, sim_x, mask, ref),
-    doff (None when direct), Kaiser window [k*k])."""
+def two_kernel_case(sp, lam, x, sigma_c, doff_mode="direct", ref=None):
+    """The two-kernel route's inputs at the first reference SAI (or at SAI
+    `ref`) of an HT step of step params sp on LF x: (planes, (bidx, sim_y,
+    sim_x, mask, ref), doff (None when direct), Kaiser window [k*k])."""
     from lfbm5d_torch.pipeline.denoise import _flat_pad
     from lfbm5d_torch.pipeline.engine import build_kernel_step
 
@@ -882,7 +942,7 @@ def two_kernel_case(sp, lam, x, sigma_c, doff_mode="direct"):
                              str(x.device), False, doff_mode)
     xp = _flat_pad(x, sp.pad)
     pl = xp.permute(3, 0, 1, 2).contiguous()
-    r = step.refs[0]
+    r = step.refs[0] if ref is None else ref
     sy, sx, _, mask, bidx = step.block_match(
         xp[..., 0].contiguous(), r, step.flat_mask(pl, sigma_c))
     return (pl, (bidx, sy, sx, mask, r), step.slot_table(bidx, sy, sx),
@@ -896,10 +956,11 @@ def _rel(got, want) -> float:
             float(got.abs().max()))
 
 
-def hold_two_kernel(label, pl, geo, doff, kai, k, nd):
+def hold_two_kernel(label, pl, geo, doff, kai, k, nd, tag="(e)"):
     """extract_groups exactly equal to its plain version, and both
     accumulate forms within ACC_REL_MAX of theirs, at one two-kernel shape;
-    (group tensor, weighted values, per-slot weights)."""
+    (group tensor, weighted values, per-slot weights, the largest relative
+    L2 of the accumulate outputs)."""
     import torch
 
     from lfbm5d_torch.kernels.accumulate import (
@@ -929,7 +990,7 @@ def hold_two_kernel(label, pl, geo, doff, kai, k, nd):
     accumulate_groups_plain(vals, *geo, npl, k=k, nd=nd, doff=doff)
     rel_1 = _rel(nk, npl)
     p, a = pl.shape[:2]
-    print(f"(e) two-kernel {label} (k={k}, nd={nd}, P={p}, A={a}, S="
+    print(f"{tag} two-kernel {label} (k={k}, nd={nd}, P={p}, A={a}, S="
           f"{mask.numel()}, live {int(mask.sum())}, doff "
           f"{doff is not None}; plan {twokernel_plan(k, a)}): extract exact "
           f"{exact}; accumulate_groups_fused rel num {rel_n:.2e}, den "
@@ -938,7 +999,7 @@ def hold_two_kernel(label, pl, geo, doff, kai, k, nd):
         raise AssertionError(f"extract_groups ({label}) disagrees with plain")
     if max(rel_n, rel_d, rel_1) > ACC_REL_MAX:
         raise AssertionError(f"accumulate ({label}) disagrees with plain")
-    return g, vals, wv
+    return g, vals, wv, max(rel_n, rel_d, rel_1)
 
 
 def two_kernel_shapes(params, x17, big, sigma_c):
@@ -1007,8 +1068,8 @@ def two_kernel_checks(params, x, sigma_c):
     pl, geo, _, kai = two_kernel_case(sp, params.lambda_3d, x, sigma_c)
     bidx, sy, sx, mask, r = geo
     c = pl.shape[0]
-    g, vals, wv = hold_two_kernel("17x17x128x128 (the table shape)", pl, geo,
-                                  None, kai, k, nd)
+    g, vals, wv, _ = hold_two_kernel("17x17x128x128 (the table shape)", pl,
+                                     geo, None, kai, k, nd)
     rows = {}
     ms = cuda_ms(lambda: extract_groups(pl, *geo, k=k, nd=nd))
     pms = cuda_ms(lambda: extract_groups_plain(pl, *geo, k=k, nd=nd), reps=2)
@@ -1250,7 +1311,7 @@ def phase_bf16(kernels, lib, params, sig, m, d_final, h_ref):
     Returns ({bf16 kernel: row}, {bf16 kernel: launches})."""
     import torch
 
-    from lfbm5d_torch import preset_denoise_params, psnr, run_bm5d
+    from lfbm5d_torch import preset_denoise_params, psnr_device, run_bm5d
     from lfbm5d_torch.lf import add_noise_np, synthetic_lf
     from lfbm5d_torch.pipeline.denoise import _raw_step, ht_step
     from lfbm5d_torch.pipeline.engine import resolve_route
@@ -1313,7 +1374,7 @@ def phase_bf16(kernels, lib, params, sig, m, d_final, h_ref):
             torch.isfinite(final).all() & torch.isfinite(basic).all()):
         raise AssertionError("auto_bf16 flagship output has the wrong shape "
                              "or non-finite values")
-    p_basic, p_final = psnr(basic, clean), psnr(final, clean)
+    p_basic, p_final = psnr_device(basic, clean), psnr_device(final, clean)
     mpix = 9 * 9 * 434 * 625 / 1e6
     delta = p_final - d_final
     print(f"(p) flagship 9x9x434x625 RGB matched auto_bf16: warm run "
@@ -1343,7 +1404,7 @@ def phase_bf16(kernels, lib, params, sig, m, d_final, h_ref):
         if preset == "default":
             launches["fused_group_step_banked_bf16"] = counts[
                 "fused_group_step_banked_bf16"]
-        p16 = psnr(f16, clean_h)
+        p16 = psnr_device(f16, clean_h)
         print(f"(p) {preset} 9x9x24x32 RGB auto_bf16 (route banked): "
               f"{p16:.3f} dB vs (h)'s plain f64 {h_ref[preset]:.3f} dB "
               f"(delta {p16 - h_ref[preset]:+.4f})")
@@ -1367,16 +1428,120 @@ def phase_bf16(kernels, lib, params, sig, m, d_final, h_ref):
     rel = _rel(finals["auto_bf16"], finals["auto"])
     print(f"(p) 17x17x32x32 RGB matched: auto_bf16 runs auto's step (route "
           f"{_raw_step(*keys[1]).route}, chain None); final rel L2 vs auto "
-          f"{rel:.2e}; PSNR {psnr(finals['auto_bf16'], c17):.3f} dB")
+          f"{rel:.2e}; PSNR {psnr_device(finals['auto_bf16'], c17):.3f} dB")
     if rel > A_GT_128_REL_MAX:
         raise AssertionError("auto_bf16 beyond 128 SAIs differs from auto")
     return rows, launches
 
 
+def nonsquare_kernel(sp, a_h, a_w) -> str:
+    """The f32 group kernel of step params sp's route at an aH x aW grid
+    (resolve_route; (q) holds no two_kernel step through a group kernel)."""
+    from lfbm5d_torch.pipeline.engine import resolve_route
+
+    return {"fused": "fused_group_step", "banked": "fused_group_step_banked"}[
+        resolve_route(sp, a_h, a_w)]
+
+
+def interior_ref(a_h: int, a_w: int) -> int:
+    """(q)'s reference SAI: (1, 3) clipped to the grid, so s != t and the
+    kernels decode a row and a column other than 0."""
+    return min(1, a_h - 1) * a_w + min(3, a_w - 1)
+
+
+def phase_nonsquare(kernels, lib, sig, m) -> None:
+    """(q): every kernel of the group stage held against its plain version
+    at non-square angular grids (NONSQUARE, at an interior reference SAI
+    with s != t): self-BM and cross-argmin exactly equal at 5x7 and 7x5;
+    each grid's f32 group kernel within GROUP_REL_MAX and its bf16 one
+    (A <= 128) within GROUP_BF16_REL_MAX, HT and Wiener (the clean LF as
+    the Wiener guide); extract_groups exact and both accumulate forms
+    within ACC_REL_MAX at 5x7 with a doff table. Then run_bm5d at
+    NONSQUARE_RUNS' shapes, each engine within PSNR_DELTA_MAX final PSNR
+    of the float64 plain pipeline run on the card, launching its route's
+    kernel and no other group kernel."""
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params, psnr_device, run_bm5d
+
+    dev = m.device  # the color matrix's: cuda:0
+    h, w = NONSQUARE_HW
+    worst = {}  # kernel -> (largest relative L2 or mismatch, at which grid)
+
+    def note(name, val, grid):
+        if val >= worst.get(name, (-1.0, ""))[0]:
+            worst[name] = (val, grid)
+
+    for a_h, a_w, preset in NONSQUARE:
+        pp = preset_denoise_params(preset, 25.0)
+        noisy, clean = lf_on_card(a_h, h, w, 1, dev, a_w)
+        x, guide = noisy @ m.T, clean @ m.T
+        ref = interior_ref(a_h, a_w)
+        grid = f"{a_h}x{a_w}x{h}x{w} {preset}"
+        label = f"(q) {grid}, reference ({ref // a_w}, {ref % a_w})"
+        if preset == "matched" and a_h * a_w == 35:
+            for name, row in phase_bm(label, bm_ctx(pp.ht, x, ref)).items():
+                note(name, row["max_abs_err"], grid)
+        for basic, wiener in ((None, False), (guide, True)):
+            sp = pp.wiener if wiener else pp.ht
+            fn = nonsquare_kernel(sp, a_h, a_w)
+            for f, rel_max in ((fn, GROUP_REL_MAX),
+                               (fn + "_bf16", GROUP_BF16_REL_MAX)):
+                if f.endswith("_bf16") and a_h * a_w > 128:
+                    continue
+                g = group_check(label, pp, x, basic, sig, wiener, f, lib,
+                                timed=False, rel_max=rel_max, ref=ref)[5]
+                note(f, g["rel"], f"{grid} {'Wiener' if wiener else 'HT'}")
+        if (a_h, a_w, preset) == NONSQUARE[0]:
+            sp = pp.ht
+            pl, geo, doff, kai = two_kernel_case(sp, pp.lambda_3d, x, sig,
+                                                 "take", ref)
+            rel = hold_two_kernel(f"{grid} doff table, reference ({ref // a_w}"
+                                  f", {ref % a_w})", pl, geo, doff, kai,
+                                  sp.k, sp.n_disp, tag="(q)")[3]
+            note("extract_groups", 0, grid)
+            note("accumulate_groups_fused / accumulate_groups", rel, grid)
+            del pl, geo, doff
+        del noisy, clean, x, guide
+    print("(q) largest disagreement per kernel over the grids: " + "; ".join(
+        f"{name} {val:.2e} ({where})" for name, (val, where) in worst.items()))
+
+    bm_path = ["self_distances_kernel", "cross_argmin_all_kernel"]
+    for a_h, a_w, h, w, runs in NONSQUARE_RUNS:
+        pp = preset_denoise_params("matched", 25.0)
+        noisy, clean = lf_on_card(a_h, h, w, 1, dev, a_w)
+        t0 = time.perf_counter()
+        _, f64 = run_bm5d(noisy, pp, dtype="float64", engine="torch")
+        p_ref = psnr_device(f64, clean)
+        print(f"(q) {a_h}x{a_w}x{h}x{w} RGB matched: plain f64 (engine "
+              f"torch, on the card) final {p_ref:.4f} dB in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for eng, fused, kern in runs:
+            path = bm_path + ([kern, "accumulate_groups_fused"]
+                              if kern == "extract_groups" else [kern])
+            tag = f"(q) {a_h}x{a_w}x{h}x{w} {eng} fused={fused}"
+            (_, final), counts = drive(
+                tag, kernels, path,
+                lambda: run_bm5d(noisy, pp, engine=eng, fused=fused))
+            others = {k: counts[k] for k in GROUP_KERNELS
+                      if k != kern and counts[k]}
+            p = psnr_device(final, clean)
+            print(f"{tag}: final {p:.4f} dB (delta {p - p_ref:+.4f} vs plain "
+                  f"f64)")
+            if others:
+                raise AssertionError(f"{tag} launched {others}")
+            if (tuple(final.shape) != tuple(noisy.shape)
+                    or not bool(torch.isfinite(final).all())
+                    or abs(p - p_ref) > PSNR_DELTA_MAX):
+                raise AssertionError(f"{tag} disagrees with the f64 plain "
+                                     f"pipeline: {p:.4f} vs {p_ref:.4f} dB")
+        del noisy, clean, f64
+
+
 def phase_doff(kernels, path, params, noisy, clean, d_final, d_dt):
     """(k): the flagship with doff_mode take and dma (and direct again);
     gather_rows' launches on the dma run."""
-    from lfbm5d_torch import psnr
+    from lfbm5d_torch import psnr_device
 
     dma_launches = 0
     for mode in ("take", "dma", "direct"):
@@ -1385,7 +1550,7 @@ def phase_doff(kernels, path, params, noisy, clean, d_final, d_dt):
         ((_, final), dt), counts = drive(
             f"(k) {mode}", kernels, run_path,
             lambda: timed_run(noisy, params, doff_mode=mode))
-        p = psnr(final, clean)
+        p = psnr_device(final, clean)
         print(f"(k) flagship matched doff_mode={mode}: {dt:.4f} s/LF "
               f"((d) direct {d_dt:.4f}); final PSNR {p:.3f} dB ((d) "
               f"{d_final:.3f})")
@@ -1403,16 +1568,16 @@ def phase_sr(kernels, path):
     """(l): x2 SR of the flagship, then a small SR against f64 plain."""
     import torch
 
-    from lfbm5d_torch import psnr, run_sr
+    from lfbm5d_torch import psnr_device, run_sr
     from lfbm5d_torch.lf.resize import upsample
 
     lr, clean, sp = sr_flagship(9, 434, 624)
-    p_bic = psnr(upsample(lr, 2), clean)
+    p_bic = psnr_device(upsample(lr, 2), clean)
     warm = timed_sr(lr, sp)[1]
     torch.cuda.reset_peak_memory_stats()
     (hr, dt), _ = drive("(l)", kernels, path, lambda: timed_sr(lr, sp))
     peak = torch.cuda.max_memory_allocated()
-    p_sr = psnr(hr, clean)
+    p_sr = psnr_device(hr, clean)
     mpix = 9 * 9 * 434 * 624 / 1e6
     print(f"(l) SR x2 9x9x217x312 -> 9x9x434x624 RGB ({sp.n_iter} "
           f"iterations, sigma {sp.sigma_init} -> {sp.sigma_final}): warm run "
@@ -1430,10 +1595,10 @@ def phase_sr(kernels, path):
     lr_s, clean_s, _ = sr_flagship(3, 32, 40)
     hr_k = run_sr(lr_s, sp, engine="auto")
     hr_p = run_sr(lr_s, sp, dtype="float64", engine="torch")
-    d = psnr(hr_k, clean_s) - psnr(hr_p, clean_s)
+    d = psnr_device(hr_k, clean_s) - psnr_device(hr_p, clean_s)
     print(f"(l) SR 3x3x16x20 -> 3x3x32x40: kernels (f32) "
-          f"{psnr(hr_k, clean_s):.3f} dB vs plain f64 "
-          f"{psnr(hr_p, clean_s):.3f} dB (delta {d:+.4f})")
+          f"{psnr_device(hr_k, clean_s):.3f} dB vs plain f64 "
+          f"{psnr_device(hr_p, clean_s):.3f} dB (delta {d:+.4f})")
     if abs(d) > PSNR_DELTA_MAX:
         raise AssertionError("small SR disagrees with the f64 reference")
 
@@ -1443,7 +1608,9 @@ def phase_router(kernels, path, two_plane):
     the routed occl-grad denoise, timed once (probe included)."""
     import torch
 
-    from lfbm5d_torch import adaptive_denoise_params, psnr, run_bm5d
+    from lfbm5d_torch import (
+        adaptive_denoise_params, psnr_device, run_bm5d,
+    )
     from lfbm5d_torch import select_preset
     from lfbm5d_torch.lf import add_noise_np, synthetic_lf_multi
 
@@ -1470,11 +1637,12 @@ def phase_router(kernels, path, two_plane):
     torch.cuda.reset_peak_memory_stats()
     (name, stats, final, dt), _ = drive("(m) occl-grad", kernels, path,
                                         routed)
-    p = psnr(final, clean)
+    p = psnr_device(final, clean)
     mpix = 9 * 9 * 434 * 625 / 1e6
     print(f"(m) occl-grad routed to {name} (weak_fraction "
           f"{stats['weak_fraction']:.3f}): {dt:.4f} s/LF = {mpix / dt:.3f} "
-          f"Mpix/s, probe included; PSNR noisy {psnr(noisy, clean):.3f} / "
+          f"Mpix/s, probe included; PSNR noisy "
+          f"{psnr_device(noisy, clean):.3f} / "
           f"final {p:.3f} dB; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if name != "robust":
@@ -1501,7 +1669,9 @@ def phase_batch(kernels, path, params, clean, noisy):
     BATCH_PSNR_DELTA_MAX of run_bm5d on the same LF and >= PSNR_FINAL_MIN."""
     import torch
 
-    from lfbm5d_torch import denoise_batch, make_devices, psnr, run_bm5d
+    from lfbm5d_torch import (
+        denoise_batch, make_devices, psnr_device, run_bm5d,
+    )
 
     devices = make_devices()
     lfs = torch.stack([torch.as_tensor(x, dtype=torch.float32)
@@ -1530,8 +1700,8 @@ def phase_batch(kernels, path, params, clean, noisy):
           f"s/LF = {mpix * len(noisy) / dt:.3f} Mpix/s; peak device memory "
           f"(cuda:0) {peak / 2**30:.2f} GiB")
     for i, seed in enumerate(BATCH_NOISE_SEEDS):
-        p_b = psnr(finals[i], ref)
-        p_s = psnr(run_bm5d(lfs[i], params)[1], ref)
+        p_b = psnr_device(finals[i], ref)
+        p_s = psnr_device(run_bm5d(lfs[i], params)[1], ref)
         print(f"(n) noise seed {seed}: final PSNR batch {p_b:.3f} dB, "
               f"run_bm5d {p_s:.3f} dB (delta {p_b - p_s:+.4f})")
         if p_b < PSNR_FINAL_MIN or abs(p_b - p_s) > BATCH_PSNR_DELTA_MAX:
@@ -1567,7 +1737,7 @@ def phase_disk(kernels, path, params, clean, noisy):
     then the CLI on the first of them in a subprocess."""
     import numpy as np
 
-    from lfbm5d_torch import psnr
+    from lfbm5d_torch import psnr_device
     from lfbm5d_torch.lf.io import load_lf, save_lf
     from lfbm5d_torch.pipeline.stream_io import stream_denoise_dirs
 
@@ -1603,7 +1773,7 @@ def phase_disk(kernels, path, params, clean, noisy):
             raise AssertionError(f"stream_denoise_dirs: {report.failures}")
         for seed, (_, out) in zip(BATCH_NOISE_SEEDS, jobs):
             back = load_lf(out, pat, a_h, a_w)
-            p = psnr(back, clean)
+            p = psnr_device(back, clean)
             print(f"(o) noise seed {seed}: final PSNR of the PNGs read back "
                   f"{p:.3f} dB")
             if back.shape != clean.shape or p < PSNR_FINAL_MIN:
@@ -1622,7 +1792,7 @@ def phase_disk(kernels, path, params, clean, noisy):
             raise AssertionError(f"the CLI failed ({res.returncode}):\n"
                                  f"{res.stderr[-3000:]}")
         rep = json.loads(res.stdout.strip().splitlines()[-1])
-        p = psnr(load_lf(out, pat, a_h, a_w), clean)
+        p = psnr_device(load_lf(out, pat, a_h, a_w), clean)
         print(f"(o) python -m lfbm5d_torch.cli denoise --preset matched "
               f"--json (subprocess, {time.perf_counter() - t0:.1f} s): "
               f"preset {rep.get('preset_selected', 'matched')}, "
@@ -1802,6 +1972,96 @@ def ab_groups(libs, m, sig) -> None:
         print(f"ab {label}: bf16/f32 new {sums['bf16'][1] / sums['f32'][1]:.3f}"
               f"x, parent {sums['bf16'][0] / sums['f32'][0]:.3f}x")
         del noisy, clean, x, basic_w
+
+
+# --swap-check: the f32 slice column of csrc/group_stage.cuh's scatter and
+# fetch, and a mutant that decodes SAI a = s*aW + t transposed
+SLICE_COLUMN = "(a / p.aW) * awp + a % p.aW"
+SLICE_COLUMN_SWAPPED = "(a % p.aH) * awp + a / p.aH"
+# (aH, aW, banked) at 32x48 `matched`: square controls, then (q)'s grids
+SWAP_CASES = ((9, 9, False), (5, 7, False), (7, 5, False), (11, 11, True),
+              (8, 16, True))
+
+
+def swap_check() -> int:
+    """--swap-check: whether (q)'s comparison sees an s/t swap that every
+    square check passes. Two mutants, each made outside the checkout: the
+    sources of lfbm5d_torch/csrc copied to a temporary directory with the
+    f32 slice column decoded transposed (SLICE_COLUMN_SWAPPED), built; and
+    the bf16 chain's dense angular table built for the swapped s/t order
+    (kernels/fused.py::dense_tables patched in memory). Each mutant group
+    kernel against the plain version at SWAP_CASES (reference SAI as (q)),
+    HT and Wiener: 0 if every square grid stays within (c)'s / (p)'s bound
+    and every non-square one falls outside it, else 1."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from lfbm5d_torch import preset_denoise_params
+    from lfbm5d_torch.kernels import _build
+    from lfbm5d_torch.kernels import fused as kf
+    from lfbm5d_torch.lf import color_matrix
+    from lfbm5d_torch.pipeline.engine import build_kernel_step
+
+    print(card_line())
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "csrc"
+        shutil.copytree(Path(REPO) / "lfbm5d_torch" / "csrc", src)
+        gs = src / "group_stage.cuh"
+        text = gs.read_text()
+        if text.count(SLICE_COLUMN) != 2:
+            raise AssertionError("group_stage.cuh's slice column changed: "
+                                 "update SLICE_COLUMN")
+        gs.write_text(text.replace(SLICE_COLUMN, SLICE_COLUMN_SWAPPED))
+        lib = _build.load(_build.build(src))
+    dev = torch.device("cuda:0")
+    m = torch.as_tensor(color_matrix("opp"), dtype=torch.float32, device=dev)
+    sig = _sigma(dev)
+    dense = kf.dense_tables
+
+    def swapped(a_h, a_w):
+        perm = torch.arange(a_h * a_w, device=dev).view(a_h, a_w).t()
+        p = perm.reshape(-1)
+        return lambda f4, i4: dense(f4[p][:, p], i4[p][:, p])
+
+    pp = preset_denoise_params("matched", 25.0)
+    wrong = []
+    for a_h, a_w, banked in SWAP_CASES:
+        noisy, clean = lf_on_card(a_h, 32, 48, 1, dev, a_w)
+        x, guide = noisy @ m.T, clean @ m.T
+        ref = interior_ref(a_h, a_w)
+        for bf16 in (False, True):
+            for basic, wiener in ((None, False), (guide, True)):
+                build_kernel_step.cache_clear()
+                if bf16:  # the plain version reads gt, not the dense table
+                    kf.dense_tables = swapped(a_h, a_w)
+                try:
+                    g = group_setup(pp, x, basic, sig, wiener,
+                                    torch.bfloat16 if bf16 else None, ref)
+                finally:
+                    kf.dense_tables = dense
+                    build_kernel_step.cache_clear()
+                raw_group_step(lib, g, banked, bf16)
+                nk, dk = g["num"].clone(), g["wden"].clone()
+                g["run"](kf.fused_group_step_plain)
+                rel = max(_rel(nk, g["num"]), _rel(dk, g["wden"]))
+                bound = GROUP_BF16_REL_MAX if bf16 else GROUP_REL_MAX
+                label = (f"{'bf16 dense table' if bf16 else 'f32 slice'} "
+                         f"{a_h}x{a_w}x32x48 matched "
+                         f"{'banked' if banked else 'fused'} "
+                         f"{'Wiener' if wiener else 'HT'}")
+                print(f"swap-check mutant {label}: rel {rel:.2e} "
+                      f"({'inside' if rel <= bound else 'outside'} {bound})")
+                if (rel <= bound) != (a_h == a_w):
+                    wrong.append(label)
+        del noisy, clean, x, guide
+    if wrong:
+        print(f"swap-check: on the wrong side of the bound: {wrong}")
+        return 1
+    print("swap-check: every square grid inside its bound, every non-square "
+          "one outside")
+    return 0
 
 
 def ab(parent_dir: str) -> int:
@@ -2024,9 +2284,11 @@ def main(argv) -> int:
         profile(argv[1].split(",") if len(argv) > 1
                 else list(CELLS) + ["counters"])
         return 0
+    if argv[:1] == ["--swap-check"]:
+        return swap_check()
     if argv[:1] == ["--ab"] and len(argv) == 2:
         return ab(argv[1])
-    from lfbm5d_torch import preset_denoise_params, psnr, run_bm5d
+    from lfbm5d_torch import preset_denoise_params, psnr_device, run_bm5d
     from lfbm5d_torch.kernels import _build
     from lfbm5d_torch.kernels.accumulate import (
         accumulate_groups, accumulate_groups_fused,
@@ -2136,9 +2398,9 @@ def main(argv) -> int:
                 torch.isfinite(final).all() & torch.isfinite(basic).all()):
             raise AssertionError("flagship output has the wrong shape or "
                                  "non-finite values")
-        p_noisy = psnr(noisy_dev, clean_dev)
-        p_basic = psnr(basic, clean_dev)
-        p_final = psnr(final, clean_dev)
+        p_noisy = psnr_device(noisy_dev, clean_dev)
+        p_basic = psnr_device(basic, clean_dev)
+        p_final = psnr_device(final, clean_dev)
         mpix = 9 * 9 * 434 * 625 / 1e6
         print(f"(d) flagship 9x9x434x625 RGB matched: warm run {warm:.3f} s, "
               f"timed run {dt:.4f} s/LF = {mpix / dt:.3f} Mpix/s")
@@ -2156,7 +2418,7 @@ def main(argv) -> int:
         _, f_gpu = run_bm5d(tiny, params, engine="auto", device=dev)
         _, f_ref = run_bm5d(tiny, params, dtype="float64", engine="torch",
                             device="cpu")
-        d_ps = psnr(f_gpu, tclean) - psnr(f_ref, tclean)
+        d_ps = psnr_device(f_gpu, tclean) - psnr_device(f_ref, tclean)
         d_max = float((f_gpu.cpu().double() - f_ref).abs().max())
         print(f"(d) 3x3x32x40 RGB kernels (f32, GPU) vs plain f64 (CPU): "
               f"PSNR delta {d_ps:+.4f} dB, max |d| {d_max:.3e}")
@@ -2215,10 +2477,11 @@ def main(argv) -> int:
                 lambda: run_bm5d(mid, params, engine="auto", fused=fused))
             for name in path[2:]:
                 launches[name] = counts[name]
-            p17[route] = psnr(f17, mid_clean)
+            p17[route] = psnr_device(f17, mid_clean)
             print(f"(f) 17x17x128x128 RGB matched, route {route}: PSNR "
-                  f"noisy {psnr(mid, mid_clean):.3f} / basic "
-                  f"{psnr(b17, mid_clean):.3f} / final {p17[route]:.3f} dB")
+                  f"noisy {psnr_device(mid, mid_clean):.3f} / basic "
+                  f"{psnr_device(b17, mid_clean):.3f} / final "
+                  f"{p17[route]:.3f} dB")
             if p17[route] < PSNR_17_MIN:
                 raise AssertionError(f"17x17 PSNR below the record on route "
                                      f"{route}")
@@ -2234,8 +2497,9 @@ def main(argv) -> int:
         mpix = 17 * 17 * 512 * 512 / 1e6
         print(f"(g) 17x17x512x512 RGB matched (route banked): {dt:.4f} s/LF "
               f"= {mpix / dt:.3f} Mpix/s; PSNR noisy "
-              f"{psnr(big, big_clean):.3f} / basic {psnr(bb, big_clean):.3f}"
-              f" / final {psnr(fb, big_clean):.3f} dB; peak device memory "
+              f"{psnr_device(big, big_clean):.3f} / basic "
+              f"{psnr_device(bb, big_clean):.3f} / final "
+              f"{psnr_device(fb, big_clean):.3f} dB; peak device memory "
               f"{peak / 2**30:.2f} GiB")
         if not bool(torch.isfinite(fb).all()) or fb.shape != big.shape:
             raise AssertionError("17x17x512x512 output is not finite")
@@ -2254,11 +2518,12 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             _, f_ref = run_bm5d(lf_h, ph, dtype="float64", engine="torch",
                                 device=dev)
-            h_ref[preset] = psnr(f_ref, clean_h)
-            d_ps = psnr(f_gpu, clean_h) - h_ref[preset]
+            h_ref[preset] = psnr_device(f_ref, clean_h)
+            d_ps = psnr_device(f_gpu, clean_h) - h_ref[preset]
             print(f"(h) {preset} 9x9x24x32 RGB: kernels (route banked, f32) "
-                  f"{psnr(f_gpu, clean_h):.3f} dB vs plain f64 "
-                  f"{psnr(f_ref, clean_h):.3f} dB (delta {d_ps:+.4f}; plain "
+                  f"{psnr_device(f_gpu, clean_h):.3f} dB vs plain f64 "
+                  f"{psnr_device(f_ref, clean_h):.3f} dB (delta {d_ps:+.4f}; "
+                  f"plain "
                   f"f64 {time.perf_counter() - t0:.1f} s)")
             if abs(d_ps) > PSNR_DELTA_MAX:
                 raise AssertionError(f"{preset} preset disagrees with the "
@@ -2272,10 +2537,11 @@ def main(argv) -> int:
             torch.cuda.reset_peak_memory_stats()
             ((b_i, f_i), dt), _ = drive(f"(i) {preset}", kernels, banked_path,
                                         lambda: timed_run(noisy_dev, ph))
-            p_final = psnr(f_i, clean_dev)
+            p_final = psnr_device(f_i, clean_dev)
             print(f"(i) flagship 9x9x434x625 RGB {preset} (route banked): "
                   f"{dt:.4f} s/LF = {mpix / dt:.3f} Mpix/s; PSNR basic "
-                  f"{psnr(b_i, clean_dev):.3f} / final {p_final:.3f} dB; "
+                  f"{psnr_device(b_i, clean_dev):.3f} / final "
+                  f"{p_final:.3f} dB; "
                   f"peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             if not bool(torch.isfinite(f_i).all()) or p_final < p_min:
@@ -2316,6 +2582,9 @@ def main(argv) -> int:
                                               d_final, h_ref)
         rows.update(bf16_rows)
         launches.update(bf16_launches)
+
+        phase = "(q)"
+        phase_nonsquare(kernels, lib, sig, m)
         bad = [n for n in sys.modules
                if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
         if bad:

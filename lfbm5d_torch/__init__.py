@@ -19,7 +19,12 @@ from lfbm5d_torch.config import (  # noqa: F401
     preset_denoise_params,
 )
 from lfbm5d_torch.lf.io import load_lf, save_lf  # noqa: F401
-from lfbm5d_torch.lf.metrics import psnr, psnr_grid_device, rmse  # noqa: F401
+from lfbm5d_torch.lf.metrics import (  # noqa: F401
+    psnr,
+    psnr_device,
+    psnr_grid_device,
+    rmse,
+)
 from lfbm5d_torch.models import LFDenoiser, LFSuperResolver  # noqa: F401
 from lfbm5d_torch.parallel import make_devices  # noqa: F401
 from lfbm5d_torch.pipeline.adaptive import (  # noqa: F401

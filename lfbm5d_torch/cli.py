@@ -32,7 +32,7 @@ import torch
 from lfbm5d_torch import config as _config
 from lfbm5d_torch.config import DenoiseParams, SRParams, StepParams
 from lfbm5d_torch.lf.io import fetch_rounded, load_lf, save_lf
-from lfbm5d_torch.lf.metrics import psnr, psnr_grid_device
+from lfbm5d_torch.lf.metrics import psnr_device, psnr_grid_device
 from lfbm5d_torch.lf.noise import add_noise_np
 
 # the reference CLI's engine names -> the port's engines
@@ -262,9 +262,10 @@ def cmd_denoise(ns) -> int:
         **{f"seconds_{k}": round(v, 3) for k, v in timer.items()},
     }
     if clean is not None:
-        report["psnr_noisy_db"] = round(psnr(torch.as_tensor(lf), clean), 3)
-        p_basic = psnr(basic, clean)
-        p_final = psnr(final, clean)
+        report["psnr_noisy_db"] = round(
+            psnr_device(torch.as_tensor(lf), clean), 3)
+        p_basic = psnr_device(basic, clean)
+        p_final = psnr_device(final, clean)
         report["psnr_basic_db"] = round(p_basic, 3)
         report["psnr_final_db"] = round(p_final, 3)
         # exact inverse of the PSNR definition (psnr = 20 log10(255/rmse))

@@ -1,9 +1,10 @@
 """Quality metrics on [0, 255]-scale tensors, reduced on their device.
 
-Counterparts of `lfbm5d_tpu.lf.metrics`: `psnr` of `psnr_device` (only the
-scalar MSE leaves the device; `psnr_device` is the same function under the
-reference's name), `psnr_grid_device` (only aH*aW scalars do) and `rmse`.
-The reductions run in float64.
+Counterparts of `lfbm5d_tpu.lf.metrics`: `rmse`, `psnr` (the plain RMSE
+form, unclipped), `psnr_device` (clips pred to [0, peak] first; only the
+scalar MSE leaves the device) and `psnr_grid_device` (clips; only aH*aW
+scalars leave it). The reductions run in float64 on the first argument's
+device.
 """
 
 from __future__ import annotations
@@ -27,17 +28,24 @@ def rmse(a, b) -> float:
     return float(torch.sqrt(torch.mean((a - b) ** 2)))
 
 
-def psnr(pred: torch.Tensor, ref, peak: float = 255.0) -> float:
-    """PSNR of clip(pred, 0, peak) against ref (tensor or array)."""
+def psnr(a, b, peak: float = 255.0) -> float:
+    """PSNR of a against b (tensors or arrays), 20 log10(peak / rmse), with
+    no clipping; inf where they are equal."""
+    r = rmse(a, b)
+    if r == 0:
+        return float("inf")
+    return 20.0 * math.log10(peak / r)
+
+
+def psnr_device(pred: torch.Tensor, ref, peak: float = 255.0) -> float:
+    """PSNR of clip(pred, 0, peak) against ref (tensor or array), i.e.
+    psnr(clip(pred, 0, peak), ref)."""
     p, r = _pair(pred, ref)
     d = p.clamp(0.0, peak) - r
     mse = float(torch.mean(d * d))
     if mse == 0:
         return float("inf")
     return 10.0 * math.log10(peak * peak / mse)
-
-
-psnr_device = psnr
 
 
 def psnr_grid_device(pred, ref, peak: float = 255.0) -> np.ndarray:

@@ -4,8 +4,9 @@ copies of its numpy functions).
 
 The reference pads every SAI edge-inclusively, as `np.pad(mode="symmetric")`
 does. torch's `F.pad(mode="reflect")` is edge-EXCLUSIVE, so the port builds
-the numpy index map once and gathers with it; the spatial axes are named
-explicitly instead of being guessed from the trailing axis' size.
+the numpy index map once and gathers with it. The port's own callers name
+the spatial axes; without them `symmetric_pad` guesses them from the
+trailing axis' size, as the reference does.
 """
 
 from __future__ import annotations
@@ -46,9 +47,15 @@ def _sym_index(n: int, before: int, after: int,
     return torch.as_tensor(idx, device=device)
 
 
-def symmetric_pad(x: torch.Tensor, pad, axes) -> torch.Tensor:
-    """Pad each axis in `axes` by `pad` ((before, after) or an int for both)
-    with edge-inclusive mirroring; equals np.pad(..., mode="symmetric")."""
+def symmetric_pad(x, pad, axes=None) -> torch.Tensor:
+    """Pad each axis in `axes` of x (a tensor or array) by `pad` ((before,
+    after) or an int for both) with edge-inclusive mirroring; equals
+    np.pad(..., mode="symmetric"). axes None: the reference's rule, the two
+    axes before a trailing channel axis of size <= 4 when x has 3 or more
+    axes, else the last two."""
+    x = torch.as_tensor(x)
+    if axes is None:
+        axes = (-3, -2) if x.ndim >= 3 and x.shape[-1] <= 4 else (-2, -1)
     before, after = (pad, pad) if isinstance(pad, int) else pad
     for ax in axes:
         x = x.index_select(ax, _sym_index(x.shape[ax], before, after,

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from lfbm5d_torch.config import DenoiseParams
-from lfbm5d_torch.lf.metrics import psnr
+from lfbm5d_torch.lf.metrics import psnr_device
 
 
 class LFDenoiser:
@@ -62,7 +62,7 @@ class LFDenoiser:
         noisy = torch.as_tensor(noisy_lf, dtype=final.dtype,
                                 device=final.device)
         return {
-            "psnr_noisy_db": psnr(noisy, clean_lf),
-            "psnr_basic_db": psnr(basic, clean_lf),
-            "psnr_final_db": psnr(final, clean_lf),
+            "psnr_noisy_db": psnr_device(noisy, clean_lf),
+            "psnr_basic_db": psnr_device(basic, clean_lf),
+            "psnr_final_db": psnr_device(final, clean_lf),
         }

@@ -2,6 +2,7 @@ from lfbm5d_torch.ops.distances import (  # noqa: F401
     DIST_QUANT,
     cross_argmin,
     cross_argmin_all,
+    displacements,
     self_distances,
     self_distances_batch,
     self_distances_batched,

@@ -103,7 +103,9 @@ def test_metrics_match_reference():
     assert grid.shape == (2, 3) and np.isinf(grid[1, 2])
     np.testing.assert_allclose(grid, want, rtol=0, atol=1e-4)
     assert tmetrics.psnr(torch.as_tensor(pred), clean) == pytest.approx(
-        jmetrics.psnr(np.clip(pred, 0, 255), clean), abs=1e-9)
+        jmetrics.psnr(pred, clean), abs=1e-9)
+    assert tmetrics.psnr_device(torch.as_tensor(pred), clean) == (
+        pytest.approx(jmetrics.psnr(np.clip(pred, 0, 255), clean), abs=1e-9))
 
 
 def test_stage_timer_matches_reference(monkeypatch):

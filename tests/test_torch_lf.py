@@ -43,7 +43,7 @@ def test_psnr_matches_reference():
     rng = np.random.default_rng(3)
     ref = rng.uniform(0, 255, (3, 3, 8, 9, 3))
     pred = ref + rng.normal(0, 20, ref.shape)
-    want = np_psnr(np.clip(pred, 0, 255), ref)
+    want = np_psnr(pred, ref)
     assert abs(psnr(torch.as_tensor(pred), ref) - want) < 1e-10
     assert psnr(torch.as_tensor(ref), ref) == float("inf")
 

@@ -17,7 +17,7 @@ from lfbm5d_tpu.lf.noise import add_noise_np
 from lfbm5d_tpu.oracle import oracle_denoise
 from lfbm5d_tpu.pipeline import ht_step as j_ht_step
 from lfbm5d_tpu.pipeline import run_bm5d as j_run_bm5d
-from lfbm5d_torch import LFDenoiser, LFSuperResolver, psnr
+from lfbm5d_torch import LFDenoiser, LFSuperResolver, psnr_device
 from lfbm5d_torch import run_bm5d as _run_bm5d
 from lfbm5d_torch.config import SRParams, from_reference
 from lfbm5d_torch.pipeline import (
@@ -91,7 +91,8 @@ def test_matched_preset_9x9_rgb_matches_jax_xla(engine):
     tb, tf = run_bm5d(noisy, params, dtype="float64", engine=engine)
     assert np.abs(tb.numpy() - np.asarray(jb)).max() < 1e-9
     assert np.abs(tf.numpy() - np.asarray(jf)).max() < 1e-9
-    assert psnr(tf, clean) > psnr(torch.as_tensor(noisy), clean) + 3.0
+    assert psnr_device(tf, clean) > psnr_device(torch.as_tensor(noisy),
+                                                clean) + 3.0
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -100,7 +101,7 @@ def test_f32_psnr_band_and_jax_xla(tiny_case, engine):
     tb, tf = run_bm5d(noisy, params, dtype="float32", engine=engine)
     assert tf.dtype == torch.float32
     p_o = np_psnr(np.clip(of, 0, 255), clean)
-    p_t = psnr(tf, clean)
+    p_t = psnr_device(tf, clean)
     assert abs(p_o - p_t) < 0.05, (p_o, p_t)
     assert p_t > np_psnr(np.clip(noisy, 0, 255), clean) + 3.0
     _, jf = j_run_bm5d(noisy, params, dtype="float32", engine="xla")

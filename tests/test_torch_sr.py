@@ -12,7 +12,7 @@ from lfbm5d_tpu.lf import resize as jresize
 from lfbm5d_tpu.lf import synthetic_lf
 from lfbm5d_tpu.oracle.oracle import oracle_sr
 from lfbm5d_tpu.pipeline.sr import sigma_schedule as j_sigma_schedule
-from lfbm5d_torch import LFSuperResolver, psnr
+from lfbm5d_torch import LFSuperResolver, psnr_device
 from lfbm5d_torch.config import from_reference
 from lfbm5d_torch.lf import resize as tresize
 from lfbm5d_torch.pipeline import sr as tsr
@@ -124,5 +124,5 @@ def test_super_resolver_beats_bicubic(sr_case):
                             dtype="float64", device="cpu")
     hr = model(lr)
     bicubic = tresize.upsample(torch.as_tensor(lr), 2)
-    assert psnr(hr, clean) > psnr(bicubic, clean)
+    assert psnr_device(hr, clean) > psnr_device(bicubic, clean)
     np.testing.assert_array_equal(model.upscale(lr), hr.numpy())
