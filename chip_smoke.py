@@ -178,7 +178,20 @@ Phases; any failure exits non-zero without the final "ok" line:
       bf16) and fused=False (two_kernel), and at 16x8x32x32 through "auto"
       (banked): each final PSNR within 0.05 dB of the float64 plain
       pipeline (engine "torch") run on the card, its route's kernels
-      launched and no other group kernel.
+      launched and no other group kernel;
+  (r) the bench, `python -m lfbm5d_torch.bench` (its `main`, in process,
+      stdout captured): the headline (no flags: 9x9x434x625 `matched`, one
+      untimed and three timed runs) prints the reference's keys plus
+      `engine` and `device` (the card's name), vs_baseline null, final
+      PSNR >= 28.37 and basic >= 27.64 dB, self-BM, cross-argmin and the
+      f32 group kernel launched 18 times per run over the four runs, and
+      seconds_per_lf at most 1.5 times (d)'s timed run (both printed);
+      `--quick` and `--proxy`: the keys and finite PSNRs; `--preset
+      adaptive`: the router picks `matched`; `--engine pallas_bf16 --runs
+      1`: the bf16 group kernel launched and the f32 one not; then `python
+      -m lfbm5d_torch.bench --quick --profile DIR` in a subprocess (the
+      build of (a) reused) exits 0 with a JSON last line naming the card,
+      a Chrome trace in DIR and its top ops by device time on stderr.
 Then the card's name and power limit, a {"kernels": [...]} line (launches
 from the path each kernel serves; ms and plain_ms at that path's shapes,
 the BM rows at the matched flagship; the bf16 rows' launches from (p)'s
@@ -192,6 +205,7 @@ the last line
 """
 
 import json
+import math
 import os
 import re
 import shutil
@@ -221,6 +235,13 @@ SR_OVER_BICUBIC_MIN = 1.5  # dB; bicubic recorded 29.853 dB
 ROUTED_PSNR_MIN = 29.83  # recorded 29.88 dB (occl-grad, routed) less 0.05
 BATCH_NOISE_SEEDS = (1, 2, 3)  # (n), (o): three flagship LFs
 BATCH_PSNR_DELTA_MAX = 0.01  # (n): batch vs run_bm5d on the same LF, dB
+BENCH_DT_RATIO_MAX = 1.5  # (r): the bench's headline s/LF over (d)'s
+# (r): every key of the reference bench's JSON line, and the port's two
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "vs_baseline_ref",
+              "seconds_per_lf", "run_seconds", "spread_frac",
+              "compile_plus_first_s", "mpix", "psnr_noisy_db",
+              "psnr_basic_db", "psnr_final_db", "preset", "family", "shape",
+              "quick", "engine", "device")
 REPO = os.path.dirname(os.path.abspath(__file__))
 GATHER_ROUNDS = 21  # (j), --ab: alternating cold-L2 rounds per function
 GATHER_HOST_CALLS = 300  # (j): calls timed back to back on the host's clock
@@ -1805,6 +1826,116 @@ def phase_disk(kernels, path, params, clean, noisy):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def bench_row(kernels, path, argv):
+    """(r): the bench's main on argv in process, under drive: (its JSON
+    last line, checked for the keys, finite PSNRs, a null vs_baseline and
+    the card's name; the launch counts)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lfbm5d_torch import bench
+
+    def run():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(argv)
+        return rc, buf.getvalue()
+
+    label = f"(r) {' '.join(argv) or '(no flags)'}"
+    (rc, out), counts = drive(label, kernels, path, run)
+    row = json.loads(out.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in row]
+    if rc != 0 or missing:
+        raise AssertionError(f"{label}: exit {rc}, keys missing {missing}")
+    sel = (f", selected {row['adaptive_selected']}"
+           if "adaptive_selected" in row else "")
+    print(f"{label}: {row['seconds_per_lf']:.4f} s/LF = {row['value']:.3f} "
+          f"Mpix/s, runs {row['run_seconds']}, spread {row['spread_frac']}, "
+          f"first run {row['compile_plus_first_s']} s; PSNR noisy / basic / "
+          f"final {row['psnr_noisy_db']} / {row['psnr_basic_db']} / "
+          f"{row['psnr_final_db']} dB; preset {row['preset']}{sel}, engine "
+          f"{row['engine']}, device {row['device']}")
+    dbs = [row[k] for k in ("psnr_noisy_db", "psnr_basic_db",
+                            "psnr_final_db")]
+    if (not all(math.isfinite(d) for d in dbs) or dbs[2] <= dbs[0]
+            or row["vs_baseline"] is not None
+            or row["device"]["name"] != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"{label}: PSNRs {dbs}, vs_baseline "
+                             f"{row['vs_baseline']}, device {row['device']}")
+    return row, counts
+
+
+def phase_bench(kernels, bm_path, d_final, d_dt):
+    """(r): the bench's rows in process, then `python -m
+    lfbm5d_torch.bench --quick` in a subprocess."""
+    import torch
+
+    from lfbm5d_torch import bench
+
+    t_phase = time.perf_counter()
+    f32_path = bm_path + ["fused_group_step"]
+    row, counts = bench_row(kernels, f32_path, [])
+    want = 18 * (1 + bench.parse([]).runs)
+    print(f"(r) headline {row['seconds_per_lf']:.4f} s/LF beside (d)'s "
+          f"timed run {d_dt:.4f} s/LF (ratio "
+          f"{row['seconds_per_lf'] / d_dt:.3f}); final PSNR "
+          f"{row['psnr_final_db']:.4f} beside (d)'s {d_final:.4f} dB")
+    if any(counts[n] != want for n in f32_path):
+        raise AssertionError(f"(r) headline: launches "
+                             f"{ {n: counts[n] for n in f32_path} }, "
+                             f"{want} expected (18 per run)")
+    if (row["psnr_final_db"] < PSNR_FINAL_MIN
+            or row["psnr_basic_db"] < PSNR_BASIC_MIN):
+        raise AssertionError(f"(r) headline PSNR below the record: "
+                             f"{row['psnr_basic_db']}, "
+                             f"{row['psnr_final_db']}")
+    if row["seconds_per_lf"] > BENCH_DT_RATIO_MAX * d_dt:
+        raise AssertionError(f"(r) headline {row['seconds_per_lf']:.4f} "
+                             f"s/LF over {BENCH_DT_RATIO_MAX} x (d)'s "
+                             f"{d_dt:.4f}")
+    for argv in (["--quick"], ["--proxy"]):
+        bench_row(kernels, f32_path, argv)
+    row, _ = bench_row(kernels, f32_path, ["--preset", "adaptive"])
+    if row["adaptive_selected"] != "matched":
+        raise AssertionError(f"(r) adaptive: {row['adaptive_selected']} on "
+                             f"the two-plane LF")
+    _, counts = bench_row(kernels, bm_path + ["fused_group_step_bf16"],
+                          ["--engine", "pallas_bf16", "--runs", "1"])
+    if counts["fused_group_step"]:
+        raise AssertionError("(r) pallas_bf16 launched the f32 group kernel")
+    root = tempfile.mkdtemp(prefix="smoke_r_", dir=os.path.join(REPO,
+                                                                "build"))
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "lfbm5d_torch.bench",
+                              "--quick", "--profile", root], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode:
+            raise AssertionError(f"(r) the bench's subprocess failed "
+                                 f"({res.returncode}):\n"
+                                 f"{res.stderr[-3000:]}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        top = res.stderr[res.stderr.find("device self-time total"):]
+        print(f"(r) python -m lfbm5d_torch.bench --quick --profile DIR "
+              f"(subprocess, {time.perf_counter() - t0:.1f} s): "
+              f"{row['seconds_per_lf']:.4f} s/LF, first run "
+              f"{row['compile_plus_first_s']:.2f} s, final PSNR "
+              f"{row['psnr_final_db']:.4f} dB, device {row['device']}; its "
+              f"top ops:\n{top.rstrip()}")
+        if row["device"]["name"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"(r) the subprocess ran on "
+                                 f"{row['device']}")
+        if (not top or os.path.getsize(os.path.join(root, "trace.json"))
+                == 0):
+            raise AssertionError("(r) --profile wrote no trace or no top "
+                                 "ops")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"(r) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def drive(label, kernels, path, fn):
     """Run one path with every launch count zeroed just before; the counts
     just after. Fails if a kernel of the path never launched."""
@@ -2585,6 +2716,9 @@ def main(argv) -> int:
 
         phase = "(q)"
         phase_nonsquare(kernels, lib, sig, m)
+
+        phase = "(r)"
+        phase_bench(kernels, bm_path, d_final, d_dt)
         bad = [n for n in sys.modules
                if n.split(".")[0] in ("jax", "jaxlib", "lfbm5d_tpu")]
         if bad:

@@ -9,9 +9,10 @@ same subcommands, flags, positional forms and JSON report.
 
 It runs on the CUDA card unless `--device cpu` is given (and raises without
 a card). `--engine` takes the reference's names: `pallas` runs the port's
-kernels (`auto`), `xla` its plain torch engine (`torch`); `pallas_bf16` has
-no counterpart and is refused. `--preset adaptive-region` runs the region
-composite (pipeline/adaptive.py::denoise_region_adaptive).
+kernels (`auto`), `pallas_bf16` the kernels with the bfloat16 chain
+(`auto_bf16`), `xla` its plain torch engine (`torch`). `--preset
+adaptive-region` runs the region composite
+(pipeline/adaptive.py::denoise_region_adaptive).
 
 Usage examples:
   python -m lfbm5d_torch.cli denoise --input noisy_dir \\

@@ -198,14 +198,15 @@ def test_tensor_input_keeps_its_device(tiny_case):
 
 def test_import_and_run_without_jax():
     """In a fresh process (this one imported jax via conftest), the port,
-    its CLI, streaming and native codec modules among them, imports and
-    denoises on the CPU with neither jax nor the JAX package (`lfbm5d_tpu`)
-    ever loaded."""
+    its CLI, bench, streaming and native codec modules among them, imports
+    and denoises on the CPU with neither jax nor the JAX package
+    (`lfbm5d_tpu`) ever loaded."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
         "import lfbm5d_torch\n"
         "import lfbm5d_torch.cli, lfbm5d_torch.native, lfbm5d_torch.utils\n"
+        "import lfbm5d_torch.bench\n"
         "import lfbm5d_torch.pipeline.stream_io\n"
         "import lfbm5d_torch.pipeline.driver, lfbm5d_torch.parallel\n"
         "from lfbm5d_torch.lf import add_noise_np, synthetic_lf\n"
